@@ -1,0 +1,339 @@
+"""Chip smoke test of the PyTorch/CUDA port (``horovod_tpu_torch``) on one
+NVIDIA H100. Run it from the repository root:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure raises and the script
+exits non-zero with no result line:
+
+1. Environment: the card's name and power limit, torch and CUDA
+   versions. TF32 is switched off so f32 comparisons are f32.
+2. Build: every kernel source under ``horovod_tpu_torch/csrc`` (one
+   nvcc per source, in parallel), with ptxas' register/spill report.
+3. Kernels against their plain PyTorch versions on the card, at the
+   training shape and at the edge cases, within the kernel's stated
+   tolerance; then the kernel's time beside the plain version's, a
+   library call's (``scaled_dot_product_attention``, timed only) and
+   the bound.
+4. Model check: a small model through the kernel path and through the
+   plain ``local`` attention path agree on loss and gradients.
+5. The slice: the train step at Llama-3-8B widths cut to 4 layers, bf16,
+   B=4, T=2048, 3 warm-up + 5 timed AdamW steps on a fixed token batch.
+   Launch counters are zeroed just before and read just after; every
+   loss must be finite and falling, and the flash kernel must have run
+   n_layers times per step.
+
+The last lines are the kernels' JSON, the card's ``nvidia-smi`` line and
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+"""
+
+import argparse
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from horovod_tpu_torch.models import transformer as ttr
+from horovod_tpu_torch.ops import _kernels
+from horovod_tpu_torch.ops import flash_attention as tfa
+
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
+H100_BYTES_PER_S = 3.35e12   # HBM3
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    between CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def attention_bound_ms(b, t, h, hkv, d, causal, itemsize, out_itemsize,
+                       flops_per_s):
+    """Least time for the forward: the larger of its operations at the
+    peak rate (two products, 2 FLOP per multiply-add, over the keys each
+    query row needs) and its bytes at the memory rate (q, k, v read
+    once; out and the f32 lse written once)."""
+    keys = t * (t + 1) // 2 if causal else t * t
+    flops = 4 * b * h * d * keys
+    nbytes = (b * t * (h + 2 * hkv) * d * itemsize
+              + b * t * h * d * out_itemsize + b * h * t * 4)
+    ops_ms = flops / flops_per_s * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+# name, B, T, H, Hkv, D, dtype, causal, out_dtype
+KERNEL_CASES = [
+    ("slice", 4, 2048, 32, 8, 128, "bfloat16", True, None),
+    ("f32_causal_gqa_d64", 2, 1024, 8, 2, 64, "float32", True, None),
+    ("f32_noncausal_ragged_d128", 1, 1000, 4, 4, 128, "float32", False,
+     None),
+    ("bf16_noncausal_ragged_t1000", 2, 1000, 16, 4, 128, "bfloat16", False,
+     None),
+    ("bf16_q_per_kv1_d64", 2, 1024, 8, 8, 64, "bfloat16", True, None),
+    ("bf16_out_f32_ragged", 2, 777, 8, 8, 128, "bfloat16", True,
+     "float32"),
+]
+
+
+def phase_kernels(seed):
+    """Phase 3: kernel vs plain on the card, then timing at the slice
+    shape. Returns the kernel's JSON entry (launches filled later)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    slice_err = None
+    for name, b, t, h, hkv, d, dt, causal, odt in KERNEL_CASES:
+        dtype = getattr(torch, dt)
+        out_dtype = getattr(torch, odt) if odt else None
+
+        def randn(n):
+            return torch.randn((n, t, d), generator=gen,
+                               device=dev).to(dtype)
+
+        q, k, v = randn(b * h), randn(b * hkv), randn(b * hkv)
+        kw = dict(scale=d ** -0.5, causal=causal, out_dtype=out_dtype,
+                  q_per_kv=h // hkv)
+        out, lse = tfa.flash_fwd_cuda(q, k, v, **kw)
+        ref_out, ref_lse = tfa.flash_fwd_reference(q, k, v, **kw)
+        torch.cuda.synchronize()
+        atol, rtol, lse_tol = tfa.kernel_tolerance(dtype, out_dtype,
+                                                   v.abs().max().item())
+        diff = (out.float() - ref_out.float()).abs()
+        err = diff.max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        excess = (diff - (atol + rtol * ref_out.float().abs())).max().item()
+        ok = (out.dtype == (out_dtype or dtype) and excess <= 0
+              and lse_err <= lse_tol and math.isfinite(err))
+        log(f"  kernel-vs-plain {name}: B={b} T={t} H={h} Hkv={hkv} D={d} "
+            f"{dt} causal={causal} out={odt or dt}: max|dout|={err:.3e} "
+            f"(atol {atol:.2e} + rtol {rtol:.2e}*|ref|) "
+            f"max|dlse|={lse_err:.3e} (tol {lse_tol:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_fwd kernel disagrees with its "
+                                 f"plain version in case {name}")
+        if name == "slice":
+            slice_err = err
+            slice_inputs = (b, t, h, hkv, d, q, k, v, kw)
+        del q, k, v, out, lse, ref_out, ref_lse, diff
+
+    b, t, h, hkv, d, q, k, v, kw = slice_inputs
+    kern_ms = cuda_ms(lambda: tfa.flash_fwd_cuda(q, k, v, **kw), iters=20)
+    plain_ms = cuda_ms(lambda: tfa.flash_fwd_reference(q, k, v, **kw),
+                       iters=3, warmup=1)
+    q4, k4, v4 = (x.view(b, -1, t, d) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), iters=20)
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(
+        b, t, h, hkv, d, True, 2, 2, H100_BF16_FLOPS)
+    log(f"  flash_fwd at the slice shape (bf16 B={b} T={t} H={h} Hkv={hkv} "
+        f"D={d} causal): kernel {kern_ms:.4f} ms "
+        f"({flops / kern_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
+        f"{100 * bound_ms / kern_ms:.1f}% of bound")
+    del q, k, v, q4, k4, v4
+    return {"name": "flash_fwd", "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "horovod_tpu/ops/flash_attention.py:34",
+            "launches": None, "max_abs_err": slice_err, "ms": kern_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_model_check(seed, device):
+    """Phase 4: a small model (head dim 64, GQA) through the kernel path
+    and through plain attention, on the same weights and tokens."""
+    base = ttr.TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                                 n_heads=4, n_kv_heads=2, d_ff=512,
+                                 max_seq=256, remat=False)
+    gen = torch.Generator(device).manual_seed(seed)
+    tokens = torch.randint(0, base.vocab_size, (2, 257), generator=gen,
+                           device=device)
+    # f32: the f32 kernel keeps f32 arithmetic, so loss and gradients
+    # agree to summation order. bf16: both paths round P to bf16 (the
+    # plain one casts P to v's dtype) and the layers round activations,
+    # so the loss is held to 1e-2 relative.
+    for dtype, loss_rtol, grad_atol in ((torch.float32, 1e-5, 1e-4),
+                                        (torch.bfloat16, 1e-2, None)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = ttr.init_params(cfg, gen, device=device)
+        results = []
+        for impl in ("flash", "local"):
+            c = dataclasses.replace(cfg, sp_attention=impl)
+            tree = ttr.map_params(
+                lambda p: p.detach().clone().requires_grad_(True), params)
+            loss = ttr.lm_loss(tree, {"tokens": tokens}, c)
+            loss.backward()
+            results.append((loss.item(),
+                            [p.grad for p in ttr.param_leaves(tree)]))
+        (lf, gf), (ll, gl) = results
+        gerr = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(gf, gl))
+        ok = (math.isfinite(lf) and abs(lf - ll) <= loss_rtol * abs(ll)
+              and (grad_atol is None or gerr <= grad_atol))
+        log(f"  model check {str(dtype)[6:]}: loss flash {lf:.7f} vs local "
+            f"{ll:.7f} (rtol {loss_rtol:.0e}), max|dgrad|={gerr:.3e}"
+            f"{'' if grad_atol is None else f' (atol {grad_atol:.0e})'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("kernel path and plain path disagree")
+
+
+def phase_slice(cfg, seed, batch, seq, warmup, steps, device):
+    """Phase 5: the train step on ``cfg``, ``warmup + steps`` steps."""
+    log(f"  config: d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"layers={cfg.n_layers} dtype={cfg.dtype} B={batch} T={seq}")
+    gen = torch.Generator(device).manual_seed(seed)
+    t0 = time.perf_counter()
+    init_state, step = ttr.make_train_step(cfg, device=device)
+    state = init_state(gen)
+    n_params = sum(p.numel() for p in ttr.param_leaves(state["params"]))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                           generator=gen, device=device)
+    torch.cuda.synchronize()
+    log(f"  init: {n_params:,} parameters in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    tfa.flash_fwd_cuda.launches = 0
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, {"tokens": tokens})
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = tfa.flash_fwd_cuda.launches
+    torch.cuda.synchronize()   # surfaces any fault from the steps
+    peak = torch.cuda.max_memory_allocated()
+
+    timed = times[warmup:]
+    step_s = statistics.median(timed)
+    tok_s = batch * seq / step_s
+    mfu = 6 * n_params * tok_s / H100_BF16_FLOPS
+    want = cfg.n_layers * (warmup + steps)
+    log(f"  losses: {[round(x, 5) for x in losses]}")
+    log(f"  step times (s): {[round(x, 4) for x in times]}")
+    log(f"  step {1e3 * step_s:.1f} ms (median of {steps}; min "
+        f"{1e3 * min(timed):.1f}, max {1e3 * max(timed):.1f}), "
+        f"{tok_s:.1f} tokens/s, MFU {100 * mfu:.2f}% "
+        f"(6 * {n_params} params * tokens/s / 989e12), peak memory "
+        f"{peak / 2**30:.2f} GiB; flash_fwd launches {launches} "
+        f"(want {want})")
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and launches == want)
+    if not ok:
+        raise AssertionError("slice failed: losses must be finite and "
+                             "falling, and flash_fwd must launch "
+                             f"{want} times (got {launches})")
+
+    # The slice's own output against plain attention, at full width: the
+    # same final parameters and tokens through the "local" path.
+    with torch.no_grad():
+        lf = ttr.lm_loss(state["params"], {"tokens": tokens}, cfg).item()
+        ll = ttr.lm_loss(state["params"], {"tokens": tokens},
+                         dataclasses.replace(cfg, sp_attention="local")
+                         ).item()
+    log(f"  slice loss after training: flash {lf:.6f} vs local {ll:.6f} "
+        f"(rel {abs(lf - ll) / abs(ll):.2e}, tol 1e-2)")
+    if not (math.isfinite(lf) and abs(lf - ll) <= 1e-2 * abs(ll)):
+        raise AssertionError("slice loss through the kernel disagrees with "
+                             "plain attention")
+    summary = {"slice": {
+        "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+        "dtype": str(cfg.dtype),
+        "batch": batch, "seq": seq, "n_params": n_params,
+        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in timed],
+        "tokens_per_s": tok_s, "mfu_6N": mfu, "peak_mem_bytes": peak,
+        "losses": losses, "flash_fwd_launches": launches}}
+    log(json.dumps(summary))
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+
+    log("phase 1: environment")
+    card = card_line()
+    log(f"  card: {card}")
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}, device {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    logs = _kernels.build_all()
+    log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("phase 3: kernels vs plain versions")
+    entry = phase_kernels(args.seed)
+    torch.cuda.empty_cache()
+
+    log("phase 4: model check (kernel path vs plain attention)")
+    phase_model_check(args.seed, torch.device("cuda"))
+    torch.cuda.empty_cache()
+
+    log("phase 5: the slice (train step, Llama-3-8B widths, 4 layers)")
+    # Llama-3-8B at its published widths, depth cut from 32 layers to 4.
+    cfg = dataclasses.replace(ttr.TransformerConfig.llama3_8b(), n_layers=4,
+                              sp_attention="flash", remat=False)
+    entry["launches"] = phase_slice(cfg, args.seed, batch=4, seq=2048,
+                                    warmup=3, steps=5,
+                                    device=torch.device("cuda"))
+
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": [entry]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

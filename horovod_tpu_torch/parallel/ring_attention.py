@@ -1,0 +1,69 @@
+"""Attention selection for the port's model, the counterpart of
+:mod:`horovod_tpu.parallel.ring_attention`.
+
+This slice runs on one device: :func:`make_sp_attention` builds the
+``"flash"`` kernel path or the plain ``"local"`` einsum path with no
+mesh. The sequence-parallel impls (``"ring"``, ``"ring_flash"``,
+``"ulysses"``) and any mesh are the sequence-parallelism slice (ROADMAP
+Queue 1 item 10) and raise until it lands, rather than silently running
+another impl than the one named.
+
+Layout convention: ``[batch, seq, heads, head_dim]`` for q/k/v.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+_NEG_BIG = -1e30  # finite "-inf", as in the reference
+
+_SP_IMPLS = ("ring", "ring_flash", "ulysses")
+
+
+def local_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Plain attention over ``[B, T, H, D]`` (equal q and kv heads):
+    f32 scores and softmax, P cast to v's dtype for the P·V product
+    with f32 accumulation, the result in q's dtype — as the reference's
+    ``preferred_element_type=f32`` einsums compute it."""
+    B, T, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((T, k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, _NEG_BIG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                        v.float()).to(q.dtype)
+
+
+def make_sp_attention(mesh=None, *, impl: str = "ring",
+                      causal: bool = True):
+    """Build ``attend(q, k, v)`` for the model layer.
+
+    ``impl="flash"`` is the Hopper kernel (:func:`flash_attention`,
+    GQA-native, so ``attend.handles_gqa`` is set); ``impl="local"`` is
+    :func:`local_attention`. Both need ``mesh=None``. The reference
+    falls back to ``local_attention`` for a sequence-parallel impl when
+    sp is 1; the port raises instead until that slice is ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_sp_attention: meshes are not ported yet (ROADMAP "
+            "Queue 1 items 9-10: mesh sharding and sequence parallelism)")
+    if impl == "flash":
+        from horovod_tpu_torch.ops.flash_attention import flash_attention
+        fa = functools.partial(flash_attention, causal=causal)
+        fa.handles_gqa = True
+        return fa
+    if impl == "local":
+        return functools.partial(local_attention, causal=causal)
+    if impl in _SP_IMPLS:
+        raise NotImplementedError(
+            f"sp_attention={impl!r} is sequence-parallel attention, not "
+            f"ported yet (ROADMAP Queue 1 item 10); use 'flash' or 'local'")
+    raise ValueError(f"unknown SP attention impl {impl!r}")

@@ -32,8 +32,13 @@ setup(
     description=("TPU-native distributed training framework with "
                  "Horovod's product surface"),
     python_requires=">=3.10",
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
-    package_data={"horovod_tpu.common": ["libhorovod_tpu_core.so"]},
+    # horovod_tpu_torch is the PyTorch/CUDA port; its kernels are built
+    # from the shipped csrc/*.cu sources at first use.
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
+    package_data={"horovod_tpu.common": ["libhorovod_tpu_core.so"],
+                  "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     install_requires=["numpy", "cloudpickle", "pyyaml"],
     extras_require={
         # >=0.6 has the modern surface (lax.pcast, shard_map
