@@ -10,11 +10,14 @@ exits non-zero with no result line:
    versions. TF32 is switched off so f32 comparisons are f32.
 2. Build: every kernel source under ``horovod_tpu_torch/csrc`` (one
    nvcc per source, in parallel), with ptxas' register/spill report.
+   Fails if the bf16 flash kernel spills, or if ptxas ignored its
+   ``setmaxnreg`` (C7508) or serialised its ``wgmma``.
 3. Kernels against their plain PyTorch versions on the card, at the
-   training shape and at the edge cases, within the kernel's stated
-   tolerance; then the kernel's time beside the plain version's, a
-   library call's (``scaled_dot_product_attention``, timed only) and
-   the bound.
+   training shape, at the edge cases and at the config's longest
+   sequence (T=8192), within the kernel's stated tolerance; then the
+   kernel's time beside the plain version's, a library call's
+   (``scaled_dot_product_attention``, timed only) and the bound, at the
+   training shape and at T=8192.
 4. Model check: a small model through the kernel path and through the
    plain ``local`` attention path agree on loss and gradients.
 5. The slice: the train step at Llama-3-8B widths cut to 4 layers, bf16,
@@ -102,15 +105,74 @@ KERNEL_CASES = [
     ("bf16_q_per_kv1_d64", 2, 1024, 8, 8, 64, "bfloat16", True, None),
     ("bf16_out_f32_ragged", 2, 777, 8, 8, 128, "bfloat16", True,
      "float32"),
+    # A tile that is mostly padding, one row past a tile, a K/V ring
+    # that wraps many times; both head dims, q_per_kv 1, 4 and 8.
+    ("bf16_t1_gqa4", 2, 1, 8, 2, 128, "bfloat16", True, None),
+    ("bf16_t1_noncausal_d64_out_f32", 1, 1, 8, 1, 64, "bfloat16", False,
+     "float32"),
+    ("bf16_t100_noncausal_gqa8_d64", 2, 100, 16, 2, 64, "bfloat16", False,
+     None),
+    ("bf16_t100_causal_q1_out_f32", 2, 100, 4, 4, 128, "bfloat16", True,
+     "float32"),
+    ("bf16_t129_causal_gqa8", 2, 129, 16, 2, 128, "bfloat16", True, None),
+    ("bf16_t129_noncausal_gqa4_d64_out_f32", 2, 129, 8, 2, 64, "bfloat16",
+     False, "float32"),
+    ("bf16_t4096_causal_gqa8_d64", 1, 4096, 16, 2, 64, "bfloat16", True,
+     None),
+    ("bf16_t4096_noncausal_gqa4_out_f32", 1, 4096, 8, 2, 128, "bfloat16",
+     False, "float32"),
+    # The config's max_seq, one sequence at Llama-3-8B's heads.
+    ("long_t8192", 1, 8192, 32, 8, 128, "bfloat16", True, None),
 ]
+
+
+def time_case(b, t, h, hkv, d, q, k, v, kw, plain_iters):
+    """Kernel, plain (when ``plain_iters``) and library times of one
+    causal bf16 case, and its bound."""
+    kern_ms = cuda_ms(lambda: tfa.flash_fwd_cuda(q, k, v, **kw), iters=20)
+    plain_ms = (cuda_ms(lambda: tfa.flash_fwd_reference(q, k, v, **kw),
+                        iters=plain_iters, warmup=1)
+                if plain_iters else None)
+    q4, k4, v4 = (x.view(b, -1, t, d) for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), iters=20)
+    bound = attention_bound_ms(b, t, h, hkv, d, True, 2, 2, H100_BF16_FLOPS)
+    return kern_ms, plain_ms, lib_ms, bound
+
+
+def phase_build():
+    """Phase 2: build every kernel source anew (so ptxas reports on
+    each) and hold the bf16 flash kernel to no spills and to the
+    register split and wgmma pipeline its source asks for."""
+    t0 = time.perf_counter()
+    logs = _kernels.build_all(force=True)
+    log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for kernel, r in _kernels.ptxas_report(text).items():
+            log(f"  {name}: {kernel}: {r['registers']} registers, "
+                f"{r['spill_stores']} / {r['spill_loads']} bytes spill "
+                f"stores / loads, {r['smem']} bytes static shared memory")
+    warnings = [w for text in logs.values()
+                for w in _kernels.ptxas_warnings(text)]
+    for w in warnings:
+        log(f"  ptxas: {w}")
+    bf16 = [r for kernel, r in _kernels.ptxas_report(
+        logs["flash_fwd"]).items() if "flash_fwd_wgmma" in kernel]
+    if (not bf16 or warnings
+            or any(r["spill_stores"] or r["spill_loads"] for r in bf16)):
+        raise AssertionError("the bf16 flash kernel spills, is missing "
+                             "from the ptxas report, or ptxas ignored its "
+                             "setmaxnreg or serialised its wgmma")
 
 
 def phase_kernels(seed):
     """Phase 3: kernel vs plain on the card, then timing at the slice
-    shape. Returns the kernel's JSON entry (launches filled later)."""
+    shape and at T=8192. Returns the kernel's JSON entry (launches
+    filled later)."""
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(seed)
     slice_err = None
+    timed = {}
     for name, b, t, h, hkv, d, dt, causal, odt in KERNEL_CASES:
         dtype = getattr(torch, dt)
         out_dtype = getattr(torch, odt) if odt else None
@@ -143,25 +205,24 @@ def phase_kernels(seed):
                                  f"plain version in case {name}")
         if name == "slice":
             slice_err = err
-            slice_inputs = (b, t, h, hkv, d, q, k, v, kw)
+        if name in ("slice", "long_t8192"):
+            # The plain version is timed at the slice shape only.
+            timed[name] = (b, t, h, hkv, d) + time_case(
+                b, t, h, hkv, d, q, k, v, kw, 3 if name == "slice" else 0)
         del q, k, v, out, lse, ref_out, ref_lse, diff
 
-    b, t, h, hkv, d, q, k, v, kw = slice_inputs
-    kern_ms = cuda_ms(lambda: tfa.flash_fwd_cuda(q, k, v, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: tfa.flash_fwd_reference(q, k, v, **kw),
-                       iters=3, warmup=1)
-    q4, k4, v4 = (x.view(b, -1, t, d) for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), iters=20)
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(
-        b, t, h, hkv, d, True, 2, 2, H100_BF16_FLOPS)
-    log(f"  flash_fwd at the slice shape (bf16 B={b} T={t} H={h} Hkv={hkv} "
-        f"D={d} causal): kernel {kern_ms:.4f} ms "
-        f"({flops / kern_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-        f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
-        f"{100 * bound_ms / kern_ms:.1f}% of bound")
-    del q, k, v, q4, k4, v4
+    for name, (b, t, h, hkv, d, kern_ms, plain_ms, lib_ms,
+               (bound_ms, bound_by, flops, nbytes)) in timed.items():
+        plain = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
+        log(f"  flash_fwd at {name} (bf16 B={b} T={t} H={h} Hkv={hkv} D={d} "
+            f"causal): kernel {kern_ms:.4f} ms "
+            f"({flops / kern_ms / 1e9:.1f} TFLOP/s), {plain}"
+            f"sdpa {lib_ms:.4f} ms (kernel / sdpa time "
+            f"{kern_ms / lib_ms:.3f}); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
+            f"{100 * bound_ms / kern_ms:.1f}% of bound")
+    _, _, _, _, _, kern_ms, plain_ms, lib_ms, (bound_ms, bound_by, _, _) = \
+        timed["slice"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "horovod_tpu/ops/flash_attention.py:34",
@@ -302,13 +363,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     log("phase 2: build")
-    t0 = time.perf_counter()
-    logs = _kernels.build_all()
-    log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    phase_build()
 
     log("phase 3: kernels vs plain versions")
     entry = phase_kernels(args.seed)

@@ -11,7 +11,9 @@ weights run through both packages.
 bf16 params/activations, f32 RMSNorm, softmax and loss, interleaved-pair
 RoPE, GQA, SwiGLU — with the reference's casts at the same places.
 Attention goes through :func:`make_sp_attention`: ``"flash"`` is the
-Hopper kernel, ``"local"`` the plain einsum.
+Hopper kernel, ``"local"`` the plain einsum, and the sequence-parallel
+impls (the default ``"ring"`` among them) are the plain einsum on one
+device, as in the reference.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ class TransformerConfig:
     # Every policy is full recompute in the port (the reference's "dots"
     # policies save matmul outputs under jax.checkpoint).
     remat_policy: str = "dots"
-    sp_attention: str = "ring"   # "flash" | "local" on one device
+    sp_attention: str = "ring"   # "flash" | "local"; "ring" | "ring_flash"
+                                 # | "ulysses" run "local" on one device
     # The Hopper kernel picks its own tiles; these are not read.
     flash_block_q: Optional[int] = None
     flash_block_k: Optional[int] = None

@@ -10,7 +10,8 @@ stale library. Concurrent builders write to a temporary name and
 rename atomically.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
-for them together.
+for them together; :func:`ptxas_report` and :func:`ptxas_warnings` read
+the compiler's ``-Xptxas -v`` log it returns.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -60,9 +62,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
+def _start(name: str, force: bool = False):
     out = library_path(name)
-    if out.exists():
+    if out.exists() and not force:
         return None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,12 +90,13 @@ def _finish(name: str, job) -> str:
     return log
 
 
-def build_all() -> Dict[str, str]:
-    """Build every kernel source that is not built yet, one ``nvcc``
-    per source running in parallel. Returns each source's compiler log
-    (``-Xptxas -v``: registers, shared memory, spills); empty for a
-    library that was already built."""
-    jobs = {name: _start(name) for name in _sources()}
+def build_all(force: bool = False) -> Dict[str, str]:
+    """Build every kernel source that is not built yet (every source
+    with ``force``), one ``nvcc`` per source running in parallel.
+    Returns each source's compiler log (``-Xptxas -v``: registers,
+    shared memory, spills); empty for a library that was already
+    built."""
+    jobs = {name: _start(name, force) for name in _sources()}
     logs, errors = {}, []
     for name, job in jobs.items():   # wait for every nvcc, even on failure
         try:
@@ -103,6 +106,38 @@ def build_all() -> Dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?, (\d+) bytes smem)?")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (by mangled name) in an ``-Xptxas -v`` log: its
+    registers, spill stores and loads, and static shared memory, in
+    bytes (dynamic shared memory is set at launch and not listed)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            name = m.group(1)
+            kernels[name] = {"registers": 0, "spill_stores": 0,
+                             "spill_loads": 0, "smem": 0}
+        elif name and (m := _SPILLS.search(line)):
+            kernels[name]["spill_stores"] = int(m.group(1))
+            kernels[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := _USED.search(line)):
+            kernels[name]["registers"] = int(m.group(1))
+            kernels[name]["smem"] = int(m.group(2) or 0)
+    return kernels
+
+
+def ptxas_warnings(log: str) -> List[str]:
+    """The log's lines that say code generation lost what the source
+    asked for: ``setmaxnreg`` ignored (C7508), or ``wgmma`` serialised."""
+    return [line.strip() for line in log.splitlines()
+            if "C7508" in line or "wgmma.mma_async instructions are "
+                                  "serialized" in line]
 
 
 @functools.lru_cache(maxsize=None)

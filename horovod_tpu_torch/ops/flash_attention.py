@@ -111,8 +111,9 @@ def flash_fwd_cuda(q, k, v, *, scale: float, causal: bool, out_dtype=None,
                    q_per_kv: int = 1):
     """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: same contract as
     :func:`flash_fwd_reference`. Raises on anything the kernel does not
-    take (device, dtype, head dim, shape, layout); never computes the
-    result another way. ``flash_fwd_cuda.launches`` counts launches."""
+    take (device, dtype, head dim, shape, layout, a bf16 scale <= 0) or
+    a launch that fails; never computes the result another way.
+    ``flash_fwd_cuda.launches`` counts launches."""
     out_dtype = q.dtype if out_dtype is None else out_dtype
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda" or x.device != q.device:
@@ -136,13 +137,18 @@ def flash_fwd_cuda(q, k, v, *, scale: float, causal: bool, out_dtype=None,
         raise ValueError(f"flash_fwd_cuda: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not "
                          f"fit q_per_kv={q_per_kv}")
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        # The bf16 kernel keeps the row max of the unscaled scores.
+        raise ValueError(f"flash_fwd_cuda: the bf16 kernel takes scale > 0, "
+                         f"not {scale}")
     out = torch.empty((bh, t, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), bh, t, d, q_per_kv, float(scale),
-                int(causal), _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
-                stream)
+    with torch.cuda.device(q.device):   # the launch goes to q's card
+        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), lse.data_ptr(), bh, t, d, q_per_kv,
+                    float(scale), int(causal), _DTYPE_CODE[q.dtype],
+                    _DTYPE_CODE[out_dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_fwd_cuda: kernel launch failed with "
                            f"CUDA error {rc}")

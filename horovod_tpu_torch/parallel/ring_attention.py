@@ -3,10 +3,11 @@
 
 This slice runs on one device: :func:`make_sp_attention` builds the
 ``"flash"`` kernel path or the plain ``"local"`` einsum path with no
-mesh. The sequence-parallel impls (``"ring"``, ``"ring_flash"``,
-``"ulysses"``) and any mesh are the sequence-parallelism slice (ROADMAP
-Queue 1 item 10) and raise until it lands, rather than silently running
-another impl than the one named.
+mesh. With no mesh the sequence is not split (sp is 1), so the
+sequence-parallel impls (``"ring"``, ``"ring_flash"``, ``"ulysses"``)
+reduce to ``local_attention``, as in the reference. Any mesh is the
+sequence-parallelism slice (ROADMAP Queue 1 item 10) and raises until
+it lands.
 
 Layout convention: ``[batch, seq, heads, head_dim]`` for q/k/v.
 """
@@ -48,9 +49,8 @@ def make_sp_attention(mesh=None, *, impl: str = "ring",
 
     ``impl="flash"`` is the Hopper kernel (:func:`flash_attention`,
     GQA-native, so ``attend.handles_gqa`` is set); ``impl="local"`` is
-    :func:`local_attention`. Both need ``mesh=None``. The reference
-    falls back to ``local_attention`` for a sequence-parallel impl when
-    sp is 1; the port raises instead until that slice is ported."""
+    :func:`local_attention`, and so is every sequence-parallel impl,
+    because with ``mesh=None`` sp is 1 (the reference's fallback)."""
     if mesh is not None:
         raise NotImplementedError(
             "make_sp_attention: meshes are not ported yet (ROADMAP "
@@ -60,10 +60,6 @@ def make_sp_attention(mesh=None, *, impl: str = "ring",
         fa = functools.partial(flash_attention, causal=causal)
         fa.handles_gqa = True
         return fa
-    if impl == "local":
+    if impl == "local" or impl in _SP_IMPLS:
         return functools.partial(local_attention, causal=causal)
-    if impl in _SP_IMPLS:
-        raise NotImplementedError(
-            f"sp_attention={impl!r} is sequence-parallel attention, not "
-            f"ported yet (ROADMAP Queue 1 item 10); use 'flash' or 'local'")
     raise ValueError(f"unknown SP attention impl {impl!r}")

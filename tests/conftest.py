@@ -29,6 +29,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running benchmark/soak tests excluded from tier-1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device; skips without one (the port's kernels "
+        "have no CPU mode)")
 
 
 @pytest.fixture(scope="session")

@@ -12,6 +12,8 @@ import torch
 
 import horovod_tpu_torch.ops.flash_attention as tfa
 
+pytestmark = pytest.mark.cuda
+
 
 @pytest.fixture()
 def cuda_device(monkeypatch):
@@ -26,11 +28,14 @@ def cuda_device(monkeypatch):
     (torch.bfloat16, torch.float32),
     (torch.float32, None),
 ])
-@pytest.mark.parametrize("t,d,q_per_kv,causal", [
-    (1000, 128, 4, False),      # ragged, GQA
-    (777, 64, 1, True),         # ragged, causal, square heads
-    (256, 128, 2, True),        # whole tiles
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,q_per_kv", [
+    (64, 1), (64, 4), (64, 8), (128, 1), (128, 2), (128, 4), (128, 8),
 ])
+# T=1 is a tile that is mostly padding, 129 one row past a tile, 256
+# whole tiles, 777 and 1000 ragged, 4096 a K/V ring that wraps 16 times
+# per query tile.
+@pytest.mark.parametrize("t", [1, 100, 129, 256, 777, 1000, 4096])
 def test_flash_fwd_matches_plain(cuda_device, dtype, out_dtype, t, d,
                                  q_per_kv, causal):
     g = torch.Generator(cuda_device).manual_seed(0)
@@ -56,9 +61,14 @@ def test_flash_fwd_matches_plain(cuda_device, dtype, out_dtype, t, d,
 
 
 def test_flash_fwd_rejects_what_it_cannot_launch(cuda_device):
+    before = tfa.flash_fwd_cuda.launches
     q = torch.zeros((4, 32, 96), device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_fwd_cuda(q, q, q, scale=0.1, causal=True)
     q = torch.zeros((4, 32, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.flash_fwd_cuda(q, q, q, scale=0.1, causal=True)
+    q = torch.zeros((4, 32, 64), device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale > 0"):
+        tfa.flash_fwd_cuda(q, q, q, scale=0.0, causal=True)
+    assert tfa.flash_fwd_cuda.launches == before

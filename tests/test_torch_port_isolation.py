@@ -91,3 +91,72 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build_all()
     assert not list(tmp_path.glob("*.so"))
+
+
+# Lines of an `nvcc -Xptxas -v` log of csrc/flash_fwd.cu, as the H100
+# machine's toolkit printed them (names shortened).
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN4simtILi128EffEEvPKT0_' for 'sm_90a'
+ptxas info    : Function properties for _ZN4simtILi128EffEEvPKT0_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 41088 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN15flash_fwd_wgmmaILi128EfEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN15flash_fwd_wgmmaILi128EfEEv14CUtensorMap_st
+    80 bytes stack frame, 80 bytes spill stores, 72 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 80 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_reads_registers_spills_and_smem():
+    from horovod_tpu_torch.ops import _kernels
+
+    report = _kernels.ptxas_report(_PTXAS_LOG)
+    assert report == {
+        "_ZN4simtILi128EffEEvPKT0_": {
+            "registers": 96, "spill_stores": 0, "spill_loads": 0,
+            "smem": 41088},
+        "_ZN15flash_fwd_wgmmaILi128EfEEv14CUtensorMap_st": {
+            "registers": 168, "spill_stores": 80, "spill_loads": 72,
+            "smem": 0},
+    }
+    assert _kernels.ptxas_report("") == {}
+
+
+def test_ptxas_warnings_catch_lost_register_split_and_wgmma_pipeline():
+    from horovod_tpu_torch.ops import _kernels
+
+    lost = [
+        "ptxas warning : (C7508) setmaxnreg ignored; unable to determine "
+        "register count at entry",
+        "ptxas info    : (C7520) Potential Performance Loss: "
+        "wgmma.mma_async instructions are serialized due to program "
+        "dependence on compiler-inserted WG.AR in divergent path",
+    ]
+    log = _PTXAS_LOG + "\n".join(lost) + "\n"
+    assert _kernels.ptxas_warnings(log) == lost
+    assert _kernels.ptxas_warnings(_PTXAS_LOG) == []
+
+
+def test_build_all_force_rebuilds_what_is_built(monkeypatch, tmp_path):
+    """A built library is reused (empty log) unless ``force`` asks for a
+    new build, whose compiler log comes back."""
+    from horovod_tpu_torch.ops import _kernels
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && '
+                    'out="$2"; shift; done\n'
+                    'echo "ptxas info    : Used 1 registers"\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", build)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    built = "ptxas info    : Used 1 registers\n"
+    assert _kernels.build_all() == {"k": built}
+    assert _kernels.library_path("k").exists()
+    assert _kernels.build_all() == {"k": ""}
+    assert _kernels.build_all(force=True) == {"k": built}
+    assert [p.name for p in build.iterdir()] == [
+        _kernels.library_path("k").name]
