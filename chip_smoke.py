@@ -25,26 +25,49 @@ exits non-zero with no result line:
    Launch counters are zeroed just before and read just after; every
    loss must be finite and falling, and the flash kernel must have run
    n_layers times per step.
+6. Data parallel over NCCL: the same slice through the data-parallel
+   train step (``make_train_step(mesh=...)``) on a real ``nccl`` world,
+   one process per card (a world of 1 on a one-card machine; NCCL takes
+   no two ranks on one card), B=4 rows per rank, the same seed and
+   tokens. Every loss finite and falling, within 1e-2 of phase 5's at a
+   world of 1; flash launches n_layers per step; one grouped allreduce
+   a step, of every gradient byte; parameter digests equal on every
+   rank. Then the time of one grouped Average allreduce of the full
+   gradient set, between CUDA events.
+7. The bench entry: ``horovod_tpu_torch.bench.run`` on phase 6's world,
+   printing its ``TFEXTRA`` line.
 
 The last lines are the kernels' JSON, the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+
+``--dp-only`` runs phases 1, 6 and 7 alone, on two or more cards: the
+multi-card check of the data-parallel path (it prints no result line).
 """
 
 import argparse
 import dataclasses
 import json
 import math
+import os
+import socket
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 
+from horovod_tpu_torch import bench
+from horovod_tpu_torch.binding import allgather_object
+from horovod_tpu_torch.common.ops_enum import Average
 from horovod_tpu_torch.models import transformer as ttr
 from horovod_tpu_torch.ops import _kernels
+from horovod_tpu_torch.ops import collectives
 from horovod_tpu_torch.ops import flash_attention as tfa
+from horovod_tpu_torch.parallel.mesh import (data_parallel_mesh,
+                                             init_process_group)
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3
@@ -54,12 +77,7 @@ def log(*args):
     print(*args, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+card_line = bench.card_line
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -340,17 +358,185 @@ def phase_slice(cfg, seed, batch, seq, warmup, steps, device):
         "tokens_per_s": tok_s, "mfu_6N": mfu, "peak_mem_bytes": peak,
         "losses": losses, "flash_fwd_launches": launches}}
     log(json.dumps(summary))
-    return launches
+    return launches, losses
+
+
+def param_digest(params):
+    """One integer per parameter tensor: the sum of its bits (as 16- or
+    32-bit integers) weighted by position, on the device. Equal
+    parameters give equal digests."""
+    out = []
+    for p in ttr.param_leaves(params):
+        bits = p.detach().reshape(-1).view(
+            torch.int16 if p.element_size() == 2 else torch.int32)
+        total = 0
+        for c in range(0, bits.numel(), 1 << 26):
+            chunk = bits[c:c + (1 << 26)].to(torch.int64)
+            pos = torch.arange(c, c + chunk.numel(), device=p.device)
+            total += int((chunk * (pos % 65521 + 1)).sum())
+        out.append(total)
+    return out
+
+
+def phase_dp(cfg, seed, batch, seq, warmup, steps, device, mesh,
+             slice_losses):
+    """Phase 6 on every rank of ``mesh``'s world: the data-parallel
+    train step on ``batch`` rows a rank, checks, and the grouped
+    allreduce's time. Rank 0 prints."""
+    n, rank = mesh.size(), dist.get_rank()
+    say = log if rank == 0 else (lambda *a: None)
+    cuda = device.type == "cuda"
+    say(f"  world: {n} process(es), backend {dist.get_backend()}, rank 0 "
+        f"on {device}; B={batch} rows a rank of a global batch of "
+        f"{batch * n}")
+    gen = torch.Generator(device).manual_seed(seed)
+    init_state, step = ttr.make_train_step(cfg, device=device, mesh=mesh)
+    state = init_state(gen)
+    leaves = ttr.param_leaves(state["params"])
+    n_params = sum(p.numel() for p in leaves)
+    grad_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    # The same draws as phase 5: at a world of 1, its parameters and
+    # tokens.
+    tokens = torch.randint(0, cfg.vocab_size, (batch * n, seq + 1),
+                           generator=gen, device=device)
+    local = {"tokens": ttr.shard_batch(tokens, mesh)}
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    tfa.flash_fwd_cuda.launches = 0
+    collectives.grouped_allreduce.calls = 0
+    collectives.grouped_allreduce.bytes = 0
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, local)
+        losses.append(loss.item())
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = tfa.flash_fwd_cuda.launches
+    calls = collectives.grouped_allreduce.calls
+    reduced = collectives.grouped_allreduce.bytes
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+
+    timed = times[warmup:]
+    step_s = statistics.median(timed)
+    tok_s = batch * seq / step_s
+    mfu = 6 * n_params * tok_s / H100_BF16_FLOPS
+    digests = allgather_object(param_digest(state["params"]))
+    want = warmup + steps
+    say(f"  losses: {[round(x, 5) for x in losses]}")
+    if n == 1:
+        say(f"  phase 5 losses: {[round(x, 5) for x in slice_losses]}")
+    say(f"  step times (s): {[round(x, 4) for x in times]}")
+    say(f"  step {1e3 * step_s:.1f} ms (median of {steps}; min "
+        f"{1e3 * min(timed):.1f}, max {1e3 * max(timed):.1f}), "
+        f"{tok_s:.1f} tokens/s/GPU, MFU {100 * mfu:.2f}% "
+        f"(6 * {n_params} params * tokens/s / 989e12), peak memory "
+        f"{peak / 2**30:.2f} GiB; flash_fwd launches {launches} (want "
+        f"{cfg.n_layers * want if cuda else 0}); grouped allreduces "
+        f"{calls} of {reduced} bytes (want {want} of {want * grad_bytes}); "
+        f"parameter digests equal on {len(digests)} rank(s): "
+        f"{all(d == digests[0] for d in digests)}")
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and (n > 1 or all(abs(a - b) <= 1e-2 * abs(b)
+                            for a, b in zip(losses, slice_losses)))
+          and launches == (cfg.n_layers * want if cuda else 0)
+          and calls == want and reduced == want * grad_bytes
+          and all(d == digests[0] for d in digests))
+    if not ok:
+        raise AssertionError("data-parallel step failed: losses must be "
+                             "finite, falling and (world of 1) within 1e-2 "
+                             "of phase 5's; flash_fwd and the grouped "
+                             "allreduce must run once a layer and once a "
+                             "step; parameters must agree on every rank")
+
+    grads = [p.grad for p in leaves]
+    group = mesh.get_group("dp")
+    ar_ms = cuda_ms(lambda: collectives.grouped_allreduce(
+        grads, Average, group), iters=5, warmup=1) if cuda else float("nan")
+    say(f"  grouped Average allreduce of every gradient: {grad_bytes} "
+        f"bytes in {ar_ms:.3f} ms ({grad_bytes / ar_ms / 1e6:.1f} GB/s, "
+        f"CUDA events, mean of 5)")
+    say(json.dumps({"data_parallel": {
+        "world": n, "batch_per_rank": batch, "seq": seq,
+        "step_ms_median": 1e3 * step_s, "step_ms": [1e3 * x for x in timed],
+        "tokens_per_s_per_gpu": tok_s, "mfu_6N": mfu,
+        "peak_mem_bytes": peak, "losses": losses,
+        "flash_fwd_launches": launches, "grouped_allreduce_calls": calls,
+        "grouped_allreduce_bytes": reduced, "grad_bytes": grad_bytes,
+        "allreduce_ms": ar_ms}}))
+
+
+# Phase 6's slice (phase 5's) and phase 7's bench arguments (bench.run's
+# defaults: bench.py's arms and sizes).
+DP_DIMS = dict(batch=4, seq=2048, warmup=3, steps=5)
+BENCH_DIMS = {}
+
+
+def dp_world(rank, n, port, cfg, seed, slice_losses, device=None,
+             dims=(DP_DIMS, BENCH_DIMS)):
+    """Phases 6 and 7 as rank ``rank`` of ``n`` (one process per card).
+    ``device="cpu"`` and smaller ``dims`` rehearse them on gloo."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    device = init_process_group(device)
+    try:
+        mesh = data_parallel_mesh()
+        phase_dp(cfg, seed, **dims[0], device=device, mesh=mesh,
+                 slice_losses=slice_losses)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if rank == 0:
+            log("phase 7: the bench entry (horovod_tpu_torch.bench)")
+        out = bench.run(mesh, device, **dims[1])
+        keys = ("transformer_std_tokens_per_sec_per_chip",
+                "transformer_tokens_per_sec_per_chip")
+        if device.type == "cuda" and bench.peak_flops(bench.device_name(
+                device)):
+            keys += ("transformer_std_mfu_pct", "transformer_mfu_pct")
+        if not all(out.get(k, 0) > 0 for k in keys):
+            raise AssertionError(f"bench entry: want {keys}, got {out}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dp(cfg, seed, slice_losses):
+    """Phases 6-7: one process per card (NCCL refuses two ranks on
+    one); a world of 1 runs in this process."""
+    n = torch.cuda.device_count()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log(f"phase 6: data parallel over NCCL ({n} card(s), one process "
+        f"each)")
+    dp_args = (n, port, cfg, seed, slice_losses)
+    if n == 1:
+        dp_world(0, *dp_args)
+    else:
+        mp.spawn(dp_world, args=dp_args, nprocs=n, join=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dp-only", action="store_true",
+                    help="run phases 1, 6 and 7 only, on two or more "
+                         "cards: the multi-card check of the data-parallel "
+                         "path")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
+        return 1
+    if args.dp_only and torch.cuda.device_count() < 2:
+        print("chip_smoke: --dp-only needs two or more cards",
+              file=sys.stderr)
         return 1
 
     log("phase 1: environment")
@@ -361,6 +547,13 @@ def main(argv=None) -> int:
         f"x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Llama-3-8B at its published widths, depth cut from 32 layers to 4.
+    cfg = dataclasses.replace(ttr.TransformerConfig.llama3_8b(), n_layers=4,
+                              sp_attention="flash", remat=False)
+    if args.dp_only:
+        run_dp(cfg, args.seed, slice_losses=None)
+        print(card_line(), flush=True)
+        return 0
 
     log("phase 2: build")
     phase_build()
@@ -374,12 +567,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     log("phase 5: the slice (train step, Llama-3-8B widths, 4 layers)")
-    # Llama-3-8B at its published widths, depth cut from 32 layers to 4.
-    cfg = dataclasses.replace(ttr.TransformerConfig.llama3_8b(), n_layers=4,
-                              sp_attention="flash", remat=False)
-    entry["launches"] = phase_slice(cfg, args.seed, batch=4, seq=2048,
-                                    warmup=3, steps=5,
-                                    device=torch.device("cuda"))
+    entry["launches"], slice_losses = phase_slice(
+        cfg, args.seed, batch=4, seq=2048, warmup=3, steps=5,
+        device=torch.device("cuda"))
+    torch.cuda.empty_cache()
+
+    run_dp(cfg, args.seed, slice_losses)
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [entry]}))

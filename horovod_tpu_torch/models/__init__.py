@@ -7,4 +7,5 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     lm_loss,
     make_train_step,
     params_from_jax,
+    shard_batch,
 )

@@ -1,5 +1,6 @@
 """Llama-family decoder LM in PyTorch — the counterpart of
-:mod:`horovod_tpu.models.transformer`, single device.
+:mod:`horovod_tpu.models.transformer`, on one device or data-parallel
+over a process group.
 
 Parameters are a plain dictionary with the reference's layout: per-layer
 leaves stacked on a leading ``n_layers`` dim (``layers["wq"]`` is
@@ -27,7 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from horovod_tpu_torch.binding import (DistributedOptimizer,
+                                       broadcast_parameters)
+from horovod_tpu_torch.common.ops_enum import Average
+from horovod_tpu_torch.compression import QUANTIZED_TODO, in_jit_codec
 from horovod_tpu_torch.device import resolve_device
+from horovod_tpu_torch.ops import collectives
+from horovod_tpu_torch.parallel.mesh import dp_group
 from horovod_tpu_torch.parallel.ring_attention import make_sp_attention
 
 _MOE_TODO = ("MoE layers (n_experts > 0) are not ported yet (ROADMAP Queue 1 "
@@ -246,13 +253,15 @@ def decoder_layer(cfg: TransformerConfig, attend, x, lp, pos_offset=0):
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def forward_with_aux(params, tokens, cfg: TransformerConfig):
+def forward_with_aux(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens ``[B, T]`` integer → (logits ``[B, T, V]``, aux_loss).
 
     With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     and is recomputed whole in the backward, whatever
-    ``cfg.remat_policy`` says."""
-    attend = make_sp_attention(None, impl=cfg.sp_attention, causal=True)
+    ``cfg.remat_policy`` says. ``mesh`` (a data-parallel mesh, whose
+    ranks each run their own rows) selects the attention as in the
+    reference."""
+    attend = make_sp_attention(mesh, impl=cfg.sp_attention, causal=True)
     layer = functools.partial(decoder_layer, cfg, attend)
     x = params["embed"].to(cfg.dtype)[tokens.long()]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -268,17 +277,17 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig):
     return x @ params["lm_head"], aux
 
 
-def forward(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig, mesh=None):
     """tokens ``[B, T]`` → logits ``[B, T, V]`` (cfg.dtype)."""
-    return forward_with_aux(params, tokens, cfg)[0]
+    return forward_with_aux(params, tokens, cfg, mesh)[0]
 
 
-def lm_loss(params, batch, cfg: TransformerConfig):
+def lm_loss(params, batch, cfg: TransformerConfig, mesh=None):
     """Next-token cross-entropy (f32 log-softmax, mean over B·T) over
     ``batch["tokens"]`` [B, T+1] plus the aux term; returns a scalar."""
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward_with_aux(params, inp, cfg)
+    logits, aux = forward_with_aux(params, inp, cfg, mesh)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
     return nll.mean() + aux
@@ -297,8 +306,9 @@ def default_optimizer(params):
                              weight_decay=0.01)
 
 
-def make_train_step(cfg: TransformerConfig, device=None, optimizer=None):
-    """Build ``(init_state, step)`` for one device.
+def make_train_step(cfg: TransformerConfig, device=None, optimizer=None, *,
+                    mesh=None, compression=None):
+    """Build ``(init_state, step)``.
 
     ``init_state(generator)`` draws parameters with :func:`init_params`;
     ``init_state(params=...)`` adopts given ones (e.g. from
@@ -308,11 +318,29 @@ def make_train_step(cfg: TransformerConfig, device=None, optimizer=None):
 
     ``optimizer`` maps the list of parameter tensors to a
     ``torch.optim.Optimizer``; the default is :func:`default_optimizer`.
-    Single device and uncompressed only: the data-parallel gradient
-    plane is ROADMAP Queue 1 item 5."""
+
+    With a data-parallel ``mesh`` (:func:`~horovod_tpu_torch.parallel.
+    mesh.build_mesh`), each rank runs the step on its own rows of the
+    global batch (:func:`shard_batch`): ``init_state`` broadcasts rank
+    0's parameters, the optimizer is wrapped in
+    :class:`~horovod_tpu_torch.binding.DistributedOptimizer` (one
+    grouped Average allreduce of every gradient before the update, so
+    every rank applies the same one), and the returned loss is the
+    Average of the ranks' losses, the global mean, as the reference's
+    dp step returns it. ``compression`` (the quantized gradient path,
+    ROADMAP Queue 1 item 8) and mesh axes other than dp (item 9) raise.
+    """
     if cfg.n_experts > 0:
         raise NotImplementedError(_MOE_TODO)
+    if in_jit_codec(compression) != "none":
+        raise NotImplementedError(
+            f"make_train_step(compression={in_jit_codec(compression)}): "
+            f"{QUANTIZED_TODO}")
+    group = None if mesh is None else dp_group(mesh)
     device = resolve_device(device)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                         f"{device}")
     make_opt = default_optimizer if optimizer is None else optimizer
 
     def init_state(generator: Optional[torch.Generator] = None, *,
@@ -328,15 +356,36 @@ def make_train_step(cfg: TransformerConfig, device=None, optimizer=None):
                 raise ValueError(f"parameter on {p.device}, train step on "
                                  f"{device}")
             p.requires_grad_(True)
-        return {"params": params, "opt": make_opt(leaves), "step": 0}
+        opt = make_opt(leaves)
+        if mesh is not None:
+            broadcast_parameters(params, 0, group)
+            opt = DistributedOptimizer(opt, group=group)
+        return {"params": params, "opt": opt, "step": 0}
 
     def step(state, batch):
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
-        loss = lm_loss(state["params"], batch, cfg)
+        loss = lm_loss(state["params"], batch, cfg, mesh)
         loss.backward()
         opt.step()
         state["step"] += 1
-        return state, loss.detach()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = collectives.allreduce(loss, Average, group)
+        return state, loss
 
     return init_state, step
+
+
+def shard_batch(tokens, mesh):
+    """This rank's rows of a global ``[B, T+1]`` token batch on a
+    data-parallel ``mesh``: rank ``r`` of ``dp`` takes rows
+    ``[r·B/dp, (r+1)·B/dp)``, as the reference shards the batch over
+    ``("dp", "fsdp")``. ``B`` must divide by dp."""
+    group = dp_group(mesh)
+    dp, r = collectives.axis_size(group), collectives.axis_rank(group)
+    if tokens.shape[0] % dp:
+        raise ValueError(f"global batch of {tokens.shape[0]} rows does not "
+                         f"divide over dp={dp}")
+    rows = tokens.shape[0] // dp
+    return tokens[r * rows:(r + 1) * rows]

@@ -1,13 +1,13 @@
 """Attention selection for the port's model, the counterpart of
 :mod:`horovod_tpu.parallel.ring_attention`.
 
-This slice runs on one device: :func:`make_sp_attention` builds the
-``"flash"`` kernel path or the plain ``"local"`` einsum path with no
-mesh. With no mesh the sequence is not split (sp is 1), so the
+:func:`make_sp_attention` builds the ``"flash"`` kernel path or the
+plain ``"local"`` einsum path. With no mesh, or a mesh whose ``sp`` axis
+is 1 (every data-parallel mesh), the sequence is not split, so the
 sequence-parallel impls (``"ring"``, ``"ring_flash"``, ``"ulysses"``)
-reduce to ``local_attention``, as in the reference. Any mesh is the
-sequence-parallelism slice (ROADMAP Queue 1 item 10) and raises until
-it lands.
+reduce to ``local_attention``, as in the reference. A mesh with sp > 1
+is the sequence-parallelism slice (ROADMAP Queue 1 item 10) and raises
+until it lands.
 
 Layout convention: ``[batch, seq, heads, head_dim]`` for q/k/v.
 """
@@ -18,6 +18,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from horovod_tpu_torch.parallel.mesh import mesh_axis_size
 
 _NEG_BIG = -1e30  # finite "-inf", as in the reference
 
@@ -43,18 +45,23 @@ def local_attention(q, k, v, *, causal: bool = True,
                         v.float()).to(q.dtype)
 
 
-def make_sp_attention(mesh=None, *, impl: str = "ring",
-                      causal: bool = True):
+def make_sp_attention(mesh=None, *, axis_name: str = "sp",
+                      impl: str = "ring", causal: bool = True):
     """Build ``attend(q, k, v)`` for the model layer.
 
     ``impl="flash"`` is the Hopper kernel (:func:`flash_attention`,
     GQA-native, so ``attend.handles_gqa`` is set); ``impl="local"`` is
-    :func:`local_attention`, and so is every sequence-parallel impl,
-    because with ``mesh=None`` sp is 1 (the reference's fallback)."""
-    if mesh is not None:
+    :func:`local_attention`, and so is every sequence-parallel impl
+    while the ``axis_name`` axis is 1 (``mesh=None`` or a mesh without
+    sequence parallelism: the reference's fallback). On a data-parallel
+    mesh each rank attends over its own rows, so the mesh changes
+    nothing here."""
+    if mesh is not None and mesh_axis_size(mesh, axis_name) != 1:
         raise NotImplementedError(
-            "make_sp_attention: meshes are not ported yet (ROADMAP "
-            "Queue 1 items 9-10: mesh sharding and sequence parallelism)")
+            f"make_sp_attention: a mesh with {axis_name}="
+            f"{mesh_axis_size(mesh, axis_name)} needs sequence "
+            f"parallelism, which is not ported yet (ROADMAP Queue 1 "
+            f"item 10)")
     if impl == "flash":
         from horovod_tpu_torch.ops.flash_attention import flash_attention
         fa = functools.partial(flash_attention, causal=causal)

@@ -1,7 +1,11 @@
 """The port stands alone: importing horovod_tpu_torch loads no JAX,
 optax, flax or horovod_tpu module, its entry points refuse to run
 without CUDA unless the CPU is asked for, and a request for the card
-raises instead of falling back to the CPU or the plain version."""
+raises instead of falling back to the CPU or the plain version. The
+process world does not come up on gloo when CUDA was asked for, nor
+alone when the launcher says there are more ranks, and the unported
+paths (Adasum, the quantized codecs, sharded meshes) raise naming their
+ROADMAP items."""
 
 import os
 import subprocess
@@ -19,6 +23,15 @@ import horovod_tpu_torch.models
 import horovod_tpu_torch.ops.flash_attention
 import horovod_tpu_torch.ops._kernels
 import horovod_tpu_torch.parallel.ring_attention
+import horovod_tpu_torch.parallel.mesh
+import horovod_tpu_torch.common.ops_enum
+import horovod_tpu_torch.common.topology
+import horovod_tpu_torch.compression
+import horovod_tpu_torch.ops.collectives
+import horovod_tpu_torch.binding
+import horovod_tpu_torch.functions
+import horovod_tpu_torch.bench
+import horovod_tpu_torch.graft_entry
 banned = ("jax", "jaxlib", "optax", "flax", "horovod_tpu")
 print(sorted(m for m in sys.modules if m.split(".")[0] in banned))
 """
@@ -49,6 +62,111 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     init_state, _ = ttr.make_train_step(cfg, device="cpu")
     state = init_state(torch.Generator().manual_seed(0))
     assert state["params"]["embed"].device.type == "cpu"
+
+
+def _clear_launcher_env(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith(("HOROVOD_", "OMPI_COMM_WORLD_", "MASTER_")):
+            monkeypatch.delenv(k)
+
+
+def test_process_group_needs_cuda_or_an_explicit_cpu(monkeypatch):
+    import torch.distributed as dist
+    from horovod_tpu_torch import bench, graft_entry
+    from horovod_tpu_torch.parallel.mesh import init_process_group
+
+    _clear_launcher_env(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_process_group(),
+                 lambda: init_process_group("cuda"),
+                 lambda: graft_entry.entry(),
+                 lambda: bench.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert not dist.is_initialized()
+
+
+def test_a_larger_world_never_runs_alone(monkeypatch):
+    """HOROVOD_SIZE=2 with no rendezvous raises at once; with one that
+    nobody answers it raises when its timeout runs out."""
+    import socket
+
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel.mesh import build_mesh, init_process_group
+
+    _clear_launcher_env(monkeypatch)
+    monkeypatch.setenv("HOROVOD_SIZE", "2")
+    monkeypatch.setenv("HOROVOD_RANK", "1")
+    with pytest.raises(RuntimeError, match="needs a rendezvous"):
+        init_process_group("cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with pytest.raises(RuntimeError):
+        init_process_group("cpu", init_method=f"tcp://127.0.0.1:{port}",
+                           timeout=2)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        build_mesh(dp=2)
+
+
+class _TpMesh:
+    """Stands in for a ``DeviceMesh`` with dims dp=1, tp=2."""
+    mesh_dim_names = ("dp", "tp")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+
+def test_unported_collective_paths_raise_naming_their_items():
+    from horovod_tpu_torch import binding
+    from horovod_tpu_torch.common.ops_enum import Adasum, Average, Sum
+    from horovod_tpu_torch.compression import Compression
+    from horovod_tpu_torch.models import transformer as ttr
+    from horovod_tpu_torch.ops import collectives
+    from horovod_tpu_torch.parallel.mesh import build_mesh
+
+    x = torch.ones(4)
+    with pytest.raises(NotImplementedError, match="Adasum.*item 15"):
+        collectives.allreduce(x, Adasum)
+    with pytest.raises(NotImplementedError, match="Adasum.*item 15"):
+        collectives.grouped_allreduce([x], Adasum)
+    for call in (lambda: Compression.int8.compress(x),
+                 lambda: collectives.allreduce(
+                     x, Sum, compression=Compression.int8),
+                 lambda: collectives.grouped_allreduce(
+                     [x], Average, compression=Compression.bf16),
+                 lambda: binding.allreduce_gradients(
+                     [x], compression=Compression.int8)):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            call()
+    with pytest.raises(ValueError, match="ef="):
+        binding.allreduce_gradients([x], ef=[x])
+    cfg = ttr.TransformerConfig.tiny(dtype=torch.float32)
+    for codec in (Compression.int8, Compression.bf16, Compression.fp16):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            ttr.make_train_step(cfg, "cpu", compression=codec)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ttr.make_train_step(cfg, "cpu", mesh=_TpMesh())
+    for axis in ("fsdp", "tp", "sp", "pp", "ep"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            build_mesh(**{axis: 2})
+
+
+def test_cast_codecs_cast_only_wide_floats():
+    from horovod_tpu_torch.compression import Compression
+
+    for codec, narrow in ((Compression.bf16, torch.bfloat16),
+                          (Compression.fp16, torch.float16)):
+        for dtype in (torch.float32, torch.float64):
+            c, ctx = codec.compress(torch.ones(3, dtype=dtype))
+            assert c.dtype == narrow and ctx == dtype
+            assert codec.decompress(c, ctx).dtype == dtype
+        for t in (torch.ones(3, dtype=torch.bfloat16), torch.arange(3)):
+            c, ctx = codec.compress(t)
+            assert c is t and ctx is None and codec.decompress(c, ctx) is t
+    t = torch.ones(2)
+    assert Compression.none.compress(t) == (t, None)
 
 
 def test_kernel_wrapper_never_falls_back():

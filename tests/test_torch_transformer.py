@@ -135,14 +135,22 @@ def test_remat_recomputes_to_the_same_grads():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+class _SpMesh:
+    """Stands in for a ``DeviceMesh`` with dims dp=1, sp=2."""
+    mesh_dim_names = ("dp", "sp")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+
 def test_unported_paths_raise():
     _, cfg_t = _cfgs()
-    with pytest.raises(NotImplementedError, match="meshes are not ported"):
-        make_sp_attention(object(), impl="ring")
+    with pytest.raises(NotImplementedError, match="sp=2.*item 10"):
+        make_sp_attention(_SpMesh(), impl="ring")
     with pytest.raises(NotImplementedError, match="item 11"):
         ttr.init_params(dataclasses.replace(cfg_t, n_experts=4),
                         torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_sp_attention(object(), impl="flash")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_sp_attention(_SpMesh(), impl="flash")
     with pytest.raises(ValueError, match="unknown"):
         make_sp_attention(None, impl="nope")
