@@ -83,12 +83,12 @@ def _reduce_(buf, op: ReduceOp, group, prescale_factor, postscale_factor):
     return _scale(buf, postscale_factor, inplace=True)
 
 
-def _check_codec(compression, op: ReduceOp) -> str:
+def _check_codec(compression) -> None:
     codec = in_jit_codec(compression)
-    if codec != "none" and (codec == "int8"
-                            or op in (ReduceOp.AVERAGE, ReduceOp.SUM)):
-        raise NotImplementedError(f"compression={codec}: {QUANTIZED_TODO}")
-    return codec
+    if codec != "none":
+        raise NotImplementedError(
+            f"compression={codec} on a collective: {QUANTIZED_TODO}; "
+            f"binding.allreduce_gradients casts gradients to bf16/fp16")
 
 
 def allreduce(x, op: ReduceOp = Average, group=None, *,
@@ -96,14 +96,9 @@ def allreduce(x, op: ReduceOp = Average, group=None, *,
               postscale_factor: Optional[float] = None,
               compression=None):
     """Reduce ``x`` across ``group`` on every rank (reference
-    ``allreduce``). A cast codec (bf16/fp16) wraps Min/Max/Product as in
-    the reference; on Sum/Average every codec is the quantized path and
-    raises until it is ported."""
-    if _check_codec(compression, op) != "none":
-        c, ctx = compression.compress(x)
-        y = allreduce(c, op, group, prescale_factor=prescale_factor,
-                      postscale_factor=postscale_factor)
-        return compression.decompress(y, ctx)
+    ``allreduce``). ``compression`` other than None/none raises until
+    the reference's codec routes are ported."""
+    _check_codec(compression)
     return _reduce_(x.clone(), op, group, prescale_factor, postscale_factor)
 
 
@@ -117,13 +112,9 @@ def grouped_allreduce(xs, op: ReduceOp = Average, group=None, *,
     returned as views of it in the tree's layout.
 
     ``grouped_allreduce.calls`` and ``grouped_allreduce.bytes`` count
-    the calls that reduce and the bytes they reduce."""
-    if _check_codec(compression, op) != "none":
-        return pytree.tree_map(
-            lambda t: allreduce(t, op, group,
-                                prescale_factor=prescale_factor,
-                                postscale_factor=postscale_factor,
-                                compression=compression), xs)
+    the calls that reduce and the bytes they reduce. ``compression``
+    other than None/none raises, as in :func:`allreduce`."""
+    _check_codec(compression)
     leaves, spec = pytree.tree_flatten(xs)
     out = [None] * len(leaves)
     by_dtype = {}

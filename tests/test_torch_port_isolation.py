@@ -120,7 +120,8 @@ class _TpMesh:
 
 def test_unported_collective_paths_raise_naming_their_items():
     from horovod_tpu_torch import binding
-    from horovod_tpu_torch.common.ops_enum import Adasum, Average, Sum
+    from horovod_tpu_torch.common.ops_enum import (Adasum, Average, Max,
+                                                   Min, Sum)
     from horovod_tpu_torch.compression import Compression
     from horovod_tpu_torch.models import transformer as ttr
     from horovod_tpu_torch.ops import collectives
@@ -136,6 +137,10 @@ def test_unported_collective_paths_raise_naming_their_items():
                      x, Sum, compression=Compression.int8),
                  lambda: collectives.grouped_allreduce(
                      [x], Average, compression=Compression.bf16),
+                 lambda: collectives.allreduce(
+                     x, Max, compression=Compression.bf16),
+                 lambda: collectives.grouped_allreduce(
+                     [x], Min, compression=Compression.fp16),
                  lambda: binding.allreduce_gradients(
                      [x], compression=Compression.int8)):
         with pytest.raises(NotImplementedError, match="item 8"):
