@@ -85,19 +85,43 @@ exits non-zero with no result line:
    step, tokens/s/GPU, MFU, peak memory and the gradient plane's own ms
    and share of the step.
 
+12. Tensor and sequence parallelism, on one card: one B=1, T=8192
+   sequence (Llama-3-8B's heads, bf16) cut into 4 chunks, each chunk's
+   queries run through ``ring_flash_attention``'s attend-and-merge over
+   the chunks in ring order (the kernel on every chunk at or before the
+   own, causal on the own), forward and backward, against the
+   whole-sequence ``flash_attention_with_lse`` (``phase_ring_merge``;
+   the NCCL rotation itself runs only on more cards).
+
+Phase 3 also times a ring chunk of phase 12 (B=1, T=2048, 32 heads,
+q_per_kv 1, bf16 in, f32 out; an earlier chunk and the own, causal).
 Phase 7 also runs the bench's compression arms
 (``bench.run_compression``). The last lines are the kernels' JSON, the
 card's ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
 
-``--dp-only`` runs phases 1, 6, 7, 8 and 10 alone, on two or more
+``--dp-only`` runs phases 1, 6, 7, 8, 10 and 12 alone, on two or more
 cards: the multi-card check of the data-parallel path, the eager plane
 and the ResNet arm (world 1 on card 0, then every card; the parameter
 digests must agree on every rank), then, on four or more cards, phase
 11's four-card planes (the dp step with int8, fsdp=4 with "none" and
 int8, dp=2 x fsdp=2 with int8; the gathered parameters' digests equal
-on every rank, per-rank peak memory) and phase 9's four-card scenario
-(it prints no result line).
+on every rank, per-rank peak memory) and phase 9's four-card scenario,
+and last phase 12 over NCCL, one process a card (``TP_PLANS``): (A)
+tp=4 with "flash" on phase 5's batch (B=4, T=2048), (B) sp=4 with
+"ring_flash", (C) sp=4 with "ulysses" and (D) tp=2 x sp=2 with
+"ring_flash", each on one B=1, T=8192 sequence, and (E) the fsdp step
+composed with tp, fsdp=2 x tp=2 with "flash" on phase 5's batch; on two
+cards tp=2 and sp=2 instead. Each takes 3 warm-up and 5 timed steps,
+its losses held within ``TP_LOSS_RTOL`` of a one-card "flash" run of
+its batch (in a fresh process on card 0; (E), whose fsdp reduce-scatter
+rounds the gradients otherwise, within phase 11's ``COMP_LOSS_SHARE``
+of that run's drop); flash launches and the tp all-reduces and sp
+transfers (calls and bytes) must equal the formulas
+(``flash_launches_per_step``, ``tp_sp_counts``) on every rank; the
+dp x sp replicas' shards and the gathered parameters must agree. It
+prints the step, tokens/s/GPU, MFU, per-rank peak memory and the tp/sp
+collectives' ms (CUDA events). ``--dp-only`` prints no result line.
 """
 
 import argparse
@@ -206,20 +230,31 @@ KERNEL_CASES = [
      False, "float32"),
     # The config's max_seq, one sequence at Llama-3-8B's heads.
     ("long_t8192", 1, 8192, 32, 8, 128, "bfloat16", True, None),
+    # A ring_flash chunk of phase 12 (T=8192 over sp=4): K/V tiled to the
+    # query heads, f32 out; an earlier chunk (no mask) and the own one.
+    ("ring_chunk", 1, 2048, 32, 32, 128, "bfloat16", False, "float32"),
+    ("ring_chunk_diag", 1, 2048, 32, 32, 128, "bfloat16", True, "float32"),
 ]
+#: The cases timed, and those whose plain version is timed too.
+TIMED_CASES = ("slice", "long_t8192", "ring_chunk", "ring_chunk_diag")
+PLAIN_TIMED = ("slice", "ring_chunk", "ring_chunk_diag")
 
 
 def time_case(b, t, h, hkv, d, q, k, v, kw, plain_iters):
     """Kernel, plain (when ``plain_iters``) and library times of one
-    causal bf16 case, and its bound."""
+    bf16 case, and its bound. The library call
+    (``scaled_dot_product_attention``) writes bf16 where the case's out
+    is f32, and returns no logsumexp."""
     kern_ms = cuda_ms(lambda: tfa.flash_fwd_cuda(q, k, v, **kw), iters=20)
     plain_ms = (cuda_ms(lambda: tfa.flash_fwd_reference(q, k, v, **kw),
                         iters=plain_iters, warmup=1)
                 if plain_iters else None)
     q4, k4, v4 = (x.view(b, -1, t, d) for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, enable_gqa=True), iters=20)
-    bound = attention_bound_ms(b, t, h, hkv, d, True, 2, 2, H100_BF16_FLOPS)
+        q4, k4, v4, is_causal=kw["causal"], enable_gqa=True), iters=20)
+    out_itemsize = 4 if kw["out_dtype"] == torch.float32 else 2
+    bound = attention_bound_ms(b, t, h, hkv, d, kw["causal"], 2,
+                               out_itemsize, H100_BF16_FLOPS)
     return kern_ms, plain_ms, lib_ms, bound
 
 
@@ -288,24 +323,23 @@ def phase_kernels(seed):
                                  f"plain version in case {name}")
         if name == "slice":
             slice_err = err
-        if name in ("slice", "long_t8192"):
-            # The plain version is timed at the slice shape only.
-            timed[name] = (b, t, h, hkv, d) + time_case(
-                b, t, h, hkv, d, q, k, v, kw, 3 if name == "slice" else 0)
+        if name in TIMED_CASES:
+            timed[name] = (b, t, h, hkv, d, causal, odt or dt) + time_case(
+                b, t, h, hkv, d, q, k, v, kw,
+                3 if name in PLAIN_TIMED else 0)
         del q, k, v, out, lse, ref_out, ref_lse, diff
 
-    for name, (b, t, h, hkv, d, kern_ms, plain_ms, lib_ms,
+    for name, (b, t, h, hkv, d, causal, odt, kern_ms, plain_ms, lib_ms,
                (bound_ms, bound_by, flops, nbytes)) in timed.items():
         plain = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
         log(f"  flash_fwd at {name} (bf16 B={b} T={t} H={h} Hkv={hkv} D={d} "
-            f"causal): kernel {kern_ms:.4f} ms "
+            f"causal={causal} out={odt}): kernel {kern_ms:.4f} ms "
             f"({flops / kern_ms / 1e9:.1f} TFLOP/s), {plain}"
             f"sdpa {lib_ms:.4f} ms (kernel / sdpa time "
             f"{kern_ms / lib_ms:.3f}); bound {bound_ms:.4f} ms by {bound_by} "
             f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
             f"{100 * bound_ms / kern_ms:.1f}% of bound")
-    _, _, _, _, _, kern_ms, plain_ms, lib_ms, (bound_ms, bound_by, _, _) = \
-        timed["slice"]
+    kern_ms, plain_ms, lib_ms, (bound_ms, bound_by, _, _) = timed["slice"][7:]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "horovod_tpu/ops/flash_attention.py:34",
@@ -936,7 +970,10 @@ def train_worker(args):
         # Dies in the backward of the kill step, when its executor is
         # handed the first response of that backward: the other ranks
         # run that allreduce, so theirs are in flight on a dead peer.
-        # The discovery file drops the slot first, as a lost host would.
+        # The slot leaves discovery with the process, as a lost host's
+        # would: discovery shows the shrunk hosts once this pid is gone
+        # (``launch``'s discover.sh), so the driver never sees the fewer
+        # slots while this worker still lives and drops another one.
         armed = []
         params["lm_head"].register_post_accumulate_grad_hook(
             lambda _: armed.append(state.step == args.kill_step))
@@ -944,8 +981,12 @@ def train_worker(args):
 
         def doomed(*a, **kw):
             if any(armed):
-                with open(args.hosts_file, "w") as f:
+                with open(args.hosts_file + ".next", "w") as f:
                     f.write(f"localhost:{args.shrink_to}\n")
+                with open(args.hosts_file + ".pid.tmp", "w") as f:
+                    f.write(str(os.getpid()))
+                os.replace(args.hosts_file + ".pid.tmp",
+                           args.hosts_file + ".pid")
                 note("killed", step=state.step)
                 os.kill(os.getpid(), signal.SIGKILL)
             return execute(*a, **kw)
@@ -1064,7 +1105,12 @@ def launch(out, np_, worker_args, elastic=None, timeout=400):
             f.write(hosts + "\n")
         script = os.path.join(out, "discover.sh")
         with open(script, "w") as f:
-            f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+            # A worker that kills itself leaves its pid and the hosts to
+            # show once it is gone (reaped by the driver).
+            f.write(f"#!/bin/sh\nif [ -f {hosts_file}.pid ] && ! kill -0 "
+                    f"\"$(cat {hosts_file}.pid)\" 2>/dev/null; then\n"
+                    f"  mv {hosts_file}.next {hosts_file}; "
+                    f"rm -f {hosts_file}.pid\nfi\ncat {hosts_file}\n")
         os.chmod(script, 0o755)
         cmd += ["--min-np", str(min_np), "--max-np", str(max_np),
                 "--host-discovery-script", script]
@@ -1729,15 +1775,338 @@ def run_phase11(cfg, seed, slice_losses, cards=1):
     return None
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+def tp_sp_counts(cfg, axes, rows, seq, sp_rank=0):
+    """``{kind: {"calls", "bytes"}}`` of one train step's model
+    collectives on sp rank ``sp_rank`` of a ``axes`` mesh (``{"dp": ..,
+    "fsdp": .., "sp": .., "tp": ..}``), for a global batch of ``rows`` x
+    ``seq`` tokens: the formula the counters of :mod:`horovod_tpu_torch.
+    parallel.tensor_parallel` must meet (the fsdp step's gathers and
+    reduce-scatters are not among them).
+
+    With tp, each of the B·T/sp local tokens' ``d_model`` activations
+    is all-reduced (cfg.dtype) in the forward once by the embedding
+    island, twice a layer (attention and MLP outputs), and in the
+    backward twice a layer (the inputs of the column-parallel matmuls)
+    and once before lm_head; the loss all-reduces three f32 values a
+    token (max, sum of exp, target logit); where ``n_kv_heads % tp``
+    the whole wk/wv gradients are summed too (two a layer). With sp the
+    ring rotates the stacked K/V of the rank's ``H / tp`` (K/V tiled to
+    the query heads) ``sp - 1`` times a layer each way; Ulysses makes
+    two all-to-alls a layer each way (q/k/v stacked, then the output).
+    With ``cfg.remat`` a layer's forward runs again in the backward."""
+    tp, sp, dp, fsdp = (axes.get(a, 1) for a in ("tp", "sp", "dp", "fsdp"))
+    elem = torch.tensor([], dtype=cfg.dtype).element_size()
+    L, D, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+    tokens = rows // (dp * fsdp) * (seq // sp)
+    act = tokens * D * elem
+    fwd = 2 if cfg.remat else 1
+    out = {k: {"calls": 0, "bytes": 0} for k in ("tp", "sp_p2p", "sp_a2a")}
+
+    def add(kind, calls, nbytes):
+        out[kind]["calls"] += calls
+        out[kind]["bytes"] += calls * nbytes
+
+    if tp > 1:
+        add("tp", 1 + 2 * L * fwd + 2 * L + 1, act)
+        add("tp", 3, tokens * 4)
+        if cfg.n_kv_heads % tp:
+            add("tp", 2 * L, D * cfg.n_kv_heads * dh * elem)
+    if sp > 1:
+        heads = tokens * (cfg.n_heads // tp) * dh * elem
+        if cfg.sp_attention in ("ring", "ring_flash"):
+            add("sp_p2p", (sp - 1) * L * (fwd + 1), 2 * heads)
+        elif cfg.sp_attention == "ulysses":
+            add("sp_a2a", L * (fwd + 1), 3 * heads)
+            add("sp_a2a", L * (fwd + 1), heads)
+    return out
+
+
+def flash_launches_per_step(cfg, sp: int, sp_rank: int) -> int:
+    """Flash kernel launches a step on sp rank ``sp_rank``: one a layer
+    for ``"flash"``; for the causal ``"ring_flash"``, one a layer for
+    each chunk at or before the rank's own (``sp_rank + 1``; the ring's
+    ``sp (sp + 1) / 2``); none for the plain impls."""
+    if cfg.sp_attention == "flash":
+        return cfg.n_layers
+    if cfg.sp_attention == "ring_flash":
+        return cfg.n_layers * (sp_rank + 1 if sp > 1 else 1)
+    return 0
+
+
+def phase_ring_merge(seed, b=1, t=8192, h=32, d=128, sp=4):
+    """Phase 12 (one card): one ``[b, t]`` sequence cut into ``sp``
+    chunks; for each chunk's queries, :func:`~horovod_tpu_torch.parallel.
+    ring_attention.attend_and_merge` over the chunks in ring order
+    (through the kernel, causal), then the backward of a random
+    cotangent on out and lse; held against the whole sequence's
+    ``flash_attention_with_lse``. The rotations between cards are not
+    exercised here (four cards run them). Bounds: out within twice the
+    kernel's own bound (each side is within it of the exact result)
+    plus 1e-5; lse within 3e-4 (1e-4 each, and the f32 merge); dq, dk,
+    dv (bf16) within 2^-5 of the largest reference gradient (bf16
+    chunk gradients summed over up to ``sp`` chunks, each rounded to
+    2^-9, and P rounded to bf16 in the kernel's P·V)."""
+    from horovod_tpu_torch.parallel import ring_attention as tra
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    bh, c, scale = b * h, t // sp, d ** -0.5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q, k, v = (randn(bh, t, d).to(torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    g_out, g_lse = randn(bh, t, d), randn(bh, t)
+    tfa.flash_fwd_cuda.launches = 0
+    outs, lses = [], []
+    for r in range(sp):
+        qr = q[:, r * c:(r + 1) * c]
+        carry = tra.ring_carry(qr)
+        for i in range(sp):
+            src = (r + i) % sp
+            carry = tra.attend_and_merge(
+                qr, k[:, src * c:(src + 1) * c], v[:, src * c:(src + 1) * c],
+                carry, case=tra.chunk_case(src, r, True), scale=scale)
+        out, lse = tra.merged_result(carry)
+        outs.append(out)
+        lses.append(lse)
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 1)
+    launches = tfa.flash_fwd_cuda.launches
+    got = torch.autograd.grad((out * g_out).sum() + (lse * g_lse).sum(),
+                              (q, k, v))
+    w_out, w_lse = tfa.flash_attention_with_lse(q, k, v, causal=True,
+                                                scale=scale,
+                                                out_dtype=torch.float32)
+    want = torch.autograd.grad((w_out * g_out).sum() + (w_lse * g_lse).sum(),
+                               (q, k, v))
+    torch.cuda.synchronize()
+    atol = 2 * tfa.kernel_tolerance(torch.bfloat16, torch.float32,
+                                    v.abs().max().item())[0] + 1e-5
+    out_err = (out - w_out).abs().max().item()
+    lse_err = (lse - w_lse).abs().max().item()
+    grad_err = [((a.float() - w.float()).abs().max()
+                 / w.float().abs().max()).item() for a, w in zip(got, want)]
+    want_launches = sp * (sp + 1) // 2
+    ok = (out_err <= atol and lse_err <= 3e-4
+          and all(e <= 2 ** -5 for e in grad_err)
+          and launches == want_launches)
+    log(f"  ring merge on one card (B={b} T={t} H={h} D={d} bf16, {sp} "
+        f"chunks of {c}; no NCCL rotation here): max|dout| {out_err:.3e} "
+        f"(bound {atol:.3e}), max|dlse| {lse_err:.3e} (bound 3e-4), "
+        f"max|dgrad| / max|grad| dq {grad_err[0]:.3e} dk {grad_err[1]:.3e} "
+        f"dv {grad_err[2]:.3e} (bound {2 ** -5:.3e}); chunk launches "
+        f"{launches} (want {want_launches}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ring_flash's attend-and-merge over chunks "
+                             "disagrees with the whole-sequence kernel")
+
+
+#: Phase 12 on four cards: (name, mesh axes, sp_attention, global rows,
+#: sequence), each held against a one-card "flash" run of its batch.
+TP_PLANS = (("A", {"tp": 4}, "flash", 4, 2048),
+            ("B", {"sp": 4}, "ring_flash", 1, 8192),
+            ("C", {"sp": 4}, "ulysses", 1, 8192),
+            ("D", {"tp": 2, "sp": 2}, "ring_flash", 1, 8192),
+            ("E", {"fsdp": 2, "tp": 2}, "flash", 4, 2048))
+#: On two cards.
+TP_PLANS_2 = (("tp2", {"tp": 2}, "flash", 4, 2048),
+              ("sp2", {"sp": 2}, "ring_flash", 1, 8192))
+TP_DIMS = dict(warmup=3, steps=5)
+#: Each loss within this share of its one-card reference. A run with
+#: fsdp > 1 reduce-scatters half-batch bf16 gradients, which round
+#: otherwise than the one-card step's whole-batch ones: it is held to
+#: phase 11's convergence bound (``COMP_LOSS_SHARE`` of the reference's
+#: drop) instead.
+TP_LOSS_RTOL = 1e-2
+#: Seconds before a collective that cannot reach its peer raises.
+TP_TIMEOUT = 300
+
+
+def tp_reference_world(cfg, seed, shapes, device=None, dims=TP_DIMS):
+    """The one-card references of phase 12: for each ``(rows, seq)``,
+    the losses of ``warmup + steps`` world-1 ``"flash"`` steps from the
+    seed's parameters and tokens (the draws every rank of a phase-12
+    run makes)."""
+    from horovod_tpu_torch.device import resolve_device
+
+    device = resolve_device(device)
+    out = {}
+    for rows, seq in shapes:
+        init_state, step = ttr.make_train_step(
+            dataclasses.replace(cfg, sp_attention="flash"), device=device)
+        gen = torch.Generator(device).manual_seed(seed)
+        state = init_state(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (rows, seq + 1),
+                               generator=gen, device=device)
+        out[(rows, seq)] = [step(state, {"tokens": tokens})[1].item()
+                            for _ in range(dims["warmup"] + dims["steps"])]
+        del state
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(cfg, seed, name, axes, impl, rows, seq, warmup, steps, device,
+             ref_losses):
+    """Phase 12 on this rank: ``make_train_step(mesh=build_mesh(**axes))``
+    with ``sp_attention=impl`` on a global ``rows x seq`` batch; flash
+    launches and tp/sp collective counters zeroed just before the steps
+    and read just after; checks; rank 0 prints."""
+    from horovod_tpu_torch.parallel import tensor_parallel as ttp
+    from horovod_tpu_torch.parallel.mesh import axis_index, build_mesh
+
+    cfg = dataclasses.replace(cfg, sp_attention=impl)
+    mesh = build_mesh(**axes)
+    n, rank = mesh.size(), dist.get_rank()
+    sp = axes.get("sp", 1)
+    s_rank = axis_index(mesh, "sp")
+    shard_of = (axis_index(mesh, "fsdp"), axis_index(mesh, "tp"))
+    say = log if rank == 0 else (lambda *a: None)
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device).manual_seed(seed)
+    init_state, step = ttr.make_train_step(cfg, device=device, mesh=mesh)
+    state = init_state(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, seq + 1),
+                           generator=gen, device=device)
+    local = {"tokens": ttr.shard_batch(tokens, mesh)}
+    n_params = sum(math.prod(sh) for sh in ttr.param_leaves(
+        ttr.param_shapes(cfg)))
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    tfa.flash_fwd_cuda.launches = 0
+    ttp.reset_counters(timing=cuda)
+    losses, times, coll = [], [], []
+    for _ in range(warmup + steps):
+        if cuda:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, local)
+        losses.append(loss.item())
+        if cuda:
+            torch.cuda.synchronize(device)
+        times.append(time.perf_counter() - t0)
+        coll.append(ttp.collective_ms(clear=True))
+    launches = tfa.flash_fwd_cuda.launches
+    counters = {k: dict(v) for k, v in ttp.counters.items()}
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    total = warmup + steps
+    want_counts = {k: {kk: total * vv for kk, vv in v.items()} for k, v in
+                   tp_sp_counts(cfg, axes, rows, seq, s_rank).items()}
+    want_launches = (total * flash_launches_per_step(cfg, sp, s_rank)
+                     if cuda else 0)
+    counts_ok = allgather_object(counters == want_counts
+                                 and launches == want_launches)
+    shard = allgather_object((shard_of, param_digest(state["params"])))
+    full = allgather_object(param_digest(ttr.gather_params(state, cfg,
+                                                           mesh)))
+    peaks = allgather_object(peak)
+    timed = times[warmup:]
+    step_s = statistics.median(timed)
+    tok_gpu = rows * seq / step_s / n
+    mfu = 6 * n_params * tok_gpu / H100_BF16_FLOPS
+    coll_ms = {k: statistics.mean(c[k] for c in coll[warmup:])
+               for k in ttp.KINDS}
+    coll_all = allgather_object(coll_ms)
+    shards_equal = all(d == e for t, d in shard for u, e in shard if t == u)
+    if axes.get("fsdp", 1) > 1:
+        drop = COMP_LOSS_SHARE * (ref_losses[0] - ref_losses[-1])
+        tols = [drop] * len(ref_losses)
+        bound = f"{COMP_LOSS_SHARE} x the reference's drop = {drop:.4f}"
+    else:
+        tols = [TP_LOSS_RTOL * abs(b) for b in ref_losses]
+        bound = f"rtol {TP_LOSS_RTOL}"
+    diff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    ok_losses = (all(math.isfinite(x) for x in losses)
+                 and losses[-1] < losses[0]
+                 and all(abs(a - b) <= t
+                         for a, b, t in zip(losses, ref_losses, tols)))
+    tag = f"  ({name}) {axes} {impl} B={rows} T={seq}"
+    say(f"{tag}: losses {[round(x, 5) for x in losses]}; one-card flash "
+        f"{[round(x, 5) for x in ref_losses]}; max |diff| {diff:.5f} "
+        f"({bound})")
+    say(f"{tag}: step {1e3 * step_s:.1f} ms (median of {steps}; min "
+        f"{1e3 * min(timed):.1f}, max {1e3 * max(timed):.1f}), "
+        f"{tok_gpu:.1f} tokens/s/GPU, MFU {100 * mfu:.2f}% (6 * {n_params} "
+        f"params * global tokens/s / {n} GPUs / 989e12), peak memory per "
+        f"rank {[round(x / 2**30, 2) for x in peaks]} GiB")
+    say(f"{tag}: rank 0 flash_fwd launches {launches} (want "
+        f"{want_launches}), model collectives {counters} (want "
+        f"{want_counts}); every rank's counts equal the formula: "
+        f"{all(counts_ok)}; collective ms a step (CUDA events, mean of "
+        f"{steps}) per rank "
+        f"{[{k: round(v, 3) for k, v in c.items()} for c in coll_all]}; "
+        f"shard digests equal across the dp x sp replicas: {shards_equal}; "
+        f"gathered digests equal on {len(full)} ranks: "
+        f"{all(d == full[0] for d in full)}")
+    say(json.dumps({"parallel": {
+        "name": name, "axes": axes, "impl": impl, "rows": rows, "seq": seq,
+        "world": n, "step_ms_median": 1e3 * step_s,
+        "step_ms": [1e3 * x for x in timed], "tokens_per_s_per_gpu": tok_gpu,
+        "mfu_6N": mfu, "peak_mem_bytes": peaks, "losses": losses,
+        "ref_losses": ref_losses, "flash_fwd_launches_rank0": launches,
+        "counters_rank0": counters, "collective_ms": coll_all}}))
+    if not (ok_losses and all(counts_ok) and shards_equal
+            and all(d == full[0] for d in full)):
+        raise AssertionError(
+            f"phase 12 ({name}) failed: losses must be finite, falling and "
+            f"within {bound} of the one-card run; flash launches and "
+            "collective counts must equal the formula on every rank; the "
+            "replicas' shards and the gathered parameters must agree")
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def tp_world(rank, n, port, cfg, seed, refs, device=None, plans=TP_PLANS,
+             dims=TP_DIMS):
+    """Phase 12's runs as rank ``rank`` of ``n`` (one process a card);
+    ``device="cpu"``, a small config and small plans rehearse it on
+    gloo."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    device = init_process_group(device, timeout=TP_TIMEOUT)
+    try:
+        for name, axes, impl, rows, seq in plans:
+            phase_tp(cfg, seed, name, axes, impl, rows, seq, **dims,
+                     device=device, ref_losses=refs[(rows, seq)])
+    finally:
+        dist.destroy_process_group()
+
+
+def run_phase12(cfg, seed, cards):
+    """Phase 12 on ``cards`` cards (four: runs A-D; two: tp=2 and sp=2):
+    the one-card references in a fresh process on card 0, then one
+    process a card."""
+    plans = TP_PLANS if cards >= 4 else TP_PLANS_2
+    log(f"phase 12: tensor and sequence parallelism over NCCL ({cards} "
+        f"cards; the one-card flash references first)")
+    gc.collect()
+    shapes = sorted({(rows, seq) for *_, rows, seq in plans})
+    with mp.get_context("spawn").Pool(1) as pool:
+        refs = pool.apply(tp_reference_world, (cfg, seed, shapes))
+    mp.spawn(tp_world, args=(cards, free_port(), cfg, seed, refs, None,
+                             plans), nprocs=cards, join=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp-only", action="store_true",
-                    help="run phases 1, 6, 7, 8 and 10 only, on two or "
-                         "more cards: the multi-card check of the "
-                         "data-parallel path, the eager plane and the "
-                         "ResNet arm (and phase 11's planes and phase 9's "
-                         "four-card scenario on four or more cards)")
+                    help="run phases 1, 6, 7, 8, 10 and 12 only, on two "
+                         "or more cards: the multi-card check of the "
+                         "data-parallel path, the eager plane, the ResNet "
+                         "arm and the tp/sp step (tp=2 and sp=2 on two "
+                         "cards; on four or more, runs A-E of "
+                         "TP_PLANS, phase 11's planes and phase 9's "
+                         "four-card scenario)")
     ap.add_argument("--phase9-dir", default=None,
                     help="where phase 9's jobs write their events and "
                          "logs (default: a new temporary directory)")
@@ -1796,6 +2165,7 @@ def main(argv=None) -> int:
         if torch.cuda.device_count() >= 4:
             run_phase11(cfg, args.seed, None, cards=4)
             run_phase9_four_cards(phase9_dir)
+        run_phase12(cfg, args.seed, min(torch.cuda.device_count(), 4))
         print(card_line(), flush=True)
         return 0
 
@@ -1828,6 +2198,10 @@ def main(argv=None) -> int:
     run_resnet(args.seed)
 
     run_phase11(cfg, args.seed, slice_losses)
+
+    log("phase 12: ring_flash's chunk merge on one card")
+    phase_ring_merge(args.seed)
+    torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     print(json.dumps({"kernels": [entry]}))

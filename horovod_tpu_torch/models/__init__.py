@@ -13,8 +13,10 @@ from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     init_params as init_transformer,
     forward as transformer_forward,
+    gather_params,
     lm_loss,
     make_train_step,
     params_from_jax,
     shard_batch,
+    shard_params,
 )

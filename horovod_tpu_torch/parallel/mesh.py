@@ -4,20 +4,27 @@
 The reference names the axes of a ``jax.sharding.Mesh`` over the device
 grid; here each process drives one card and the mesh is a
 :class:`torch.distributed.device_mesh.DeviceMesh` over the processes of
-the world. The data axes are ported: ``dp`` and ``fsdp`` (a rank's
-global index is ``d * fsdp + f``, the reference's row-major device
-grid); tp/sp/ep/pp must be 1 (ROADMAP Queue 1 items 9-12). ``fsdp`` of
-size 1 is left out of the ``DeviceMesh`` (torch makes a process group
-for each of its dims); :func:`mesh_axis_size` reads an absent axis as
-1, as the reference's size-1 axes are read.
+the world, over the reference's axis order ``(dp, fsdp, pp, sp, tp,
+ep)``, row-major: the rank at ``(d, f, s, t)`` is ``((d * fsdp + f) *
+sp + s) * tp + t``, so tp is innermost, as the reference lays it out.
+dp, fsdp, sp and tp are ported; pp and ep must be 1 (ROADMAP Queue 1
+items 12 and 11). Axes of size 1 other than dp are left out of the
+``DeviceMesh`` (torch makes a process group for each of its dims);
+:func:`mesh_axis_size` reads an absent axis as 1, as the reference's
+size-1 axes are read.
 
     device = init_process_group()      # nccl on cuda:<local_rank>
-    mesh = build_mesh(dp=-1)           # or build_mesh(dp=2, fsdp=2)
+    mesh = build_mesh(dp=-1)           # or build_mesh(dp=2, sp=2, tp=2)
+
+Groups: :func:`tp_group` and :func:`sp_group` carry the model's own
+collectives; :func:`replica_group` is the group the gradients are
+Averaged over (the ranks that hold the same parameter shards).
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from typing import Optional
 
@@ -29,9 +36,10 @@ from horovod_tpu_torch.common.topology import (Topology, card_index,
                                                topology_from_env)
 from horovod_tpu_torch.device import resolve_device
 
-SHARDING_TODO = ("only the data axes (dp, fsdp) are ported; tp sharding "
-                 "is ROADMAP Queue 1 item 9, sp item 10, ep item 11, pp "
-                 "item 12")
+SHARDING_TODO = ("the dp, fsdp, sp and tp axes are ported; ep (MoE) is "
+                 "ROADMAP Queue 1 item 11, pp (the pipeline) item 12")
+
+AXES = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
 
 def init_process_group(device=None, *, init_method: Optional[str] = None,
@@ -91,11 +99,15 @@ def init_process_group(device=None, *, init_method: Optional[str] = None,
 
 def build_mesh(*, dp: int = -1, fsdp: int = 1, pp: int = 1, sp: int = 1,
                tp: int = 1, ep: int = 1) -> DeviceMesh:
-    """A ``DeviceMesh`` over the world with dims ``("dp",)`` or ``("dp",
-    "fsdp")``. ``dp=-1`` takes every process the fsdp axis leaves;
-    ``dp * fsdp`` must be the world size. tp/sp/pp/ep > 1 raise until
-    their slices are ported."""
-    others = {"pp": pp, "sp": sp, "tp": tp, "ep": ep}
+    """A ``DeviceMesh`` over the world with dims ``"dp"`` and those of
+    ``"fsdp"``, ``"sp"`` and ``"tp"`` above 1, in that order.
+    ``dp=-1`` takes every process the other axes leave; ``dp * fsdp *
+    sp * tp`` must be the world size. pp/ep > 1 raise until their
+    slices are ported.
+
+    With dp and sp both above 1 it also makes the flattened dp x sp
+    group of :func:`replica_group` (every rank takes part)."""
+    others = {"pp": pp, "ep": ep}
     bad = {a: s for a, s in others.items() if s != 1}
     if bad:
         raise NotImplementedError(f"build_mesh{bad}: {SHARDING_TODO}")
@@ -103,18 +115,32 @@ def build_mesh(*, dp: int = -1, fsdp: int = 1, pp: int = 1, sp: int = 1,
         raise RuntimeError("build_mesh needs the world: call "
                            "init_process_group() first")
     n = dist.get_world_size()
-    if fsdp < 1 or n % fsdp:
-        raise ValueError(f"mesh fsdp={fsdp} does not divide the world of {n}")
+    model = {"fsdp": fsdp, "sp": sp, "tp": tp}
+    for a, size in model.items():
+        if size < 1 or n % size:
+            raise ValueError(f"mesh {a}={size} does not divide the world "
+                             f"of {n}")
+    inner = fsdp * sp * tp
     if dp == -1:
-        dp = n // fsdp
-    elif dp * fsdp != n:
-        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} needs {dp * fsdp} "
-                         f"processes; the world has {n}")
+        if n % inner:
+            raise ValueError(f"mesh fsdp x sp x tp = {inner} does not "
+                             f"divide the world of {n}")
+        dp = n // inner
+    elif dp * inner != n:
+        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} x sp={sp} x tp={tp} "
+                         f"needs {dp * inner} processes; the world has {n}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    if fsdp == 1:
-        return init_device_mesh(device_type, (dp,), mesh_dim_names=("dp",))
-    return init_device_mesh(device_type, (dp, fsdp),
-                            mesh_dim_names=("dp", "fsdp"))
+    names = ("dp",) + tuple(a for a, size in model.items() if size > 1)
+    shape = (dp,) + tuple(size for size in model.values() if size > 1)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=names)
+    if dp > 1 and sp > 1:
+        # Rank ((d * fsdp + f) * sp + s) * tp + t: one group for each
+        # (f, t), over every d and s.
+        lists = [[((d * fsdp + f) * sp + s) * tp + t
+                  for d in range(dp) for s in range(sp)]
+                 for f in range(fsdp) for t in range(tp)]
+        mesh._replica_group, _ = dist.new_subgroups_by_enumeration(lists)
+    return mesh
 
 
 def data_parallel_mesh() -> DeviceMesh:
@@ -130,21 +156,97 @@ def mesh_axis_size(mesh: DeviceMesh, name: str) -> int:
 
 
 def unported_axes(mesh: DeviceMesh) -> dict:
-    """The axes of ``mesh`` other than dp and fsdp with size > 1."""
+    """The axes of ``mesh`` that are not ported (pp, ep) with size > 1."""
     names = tuple(mesh.mesh_dim_names or ())
     return {a: mesh.size(i) for i, a in enumerate(names)
-            if a not in ("dp", "fsdp") and mesh.size(i) != 1}
+            if a in ("pp", "ep") and mesh.size(i) != 1}
+
+
+def _axis_group(mesh: DeviceMesh, name: str):
+    names = tuple(mesh.mesh_dim_names or ())
+    return mesh.get_group(name) if name in names else None
+
+
+def tp_group(mesh: DeviceMesh):
+    """The process group of ``mesh``'s tp axis (the ranks of one ``(d,
+    f, s)``, consecutive), or None where the mesh has no tp axis (size
+    1): the model's tensor-parallel all-reduces ride it."""
+    return _axis_group(mesh, "tp")
+
+
+def sp_group(mesh: DeviceMesh):
+    """The process group of ``mesh``'s sp axis (the ranks of one ``(d,
+    f, t)``, in sequence-chunk order), or None where the mesh has no sp
+    axis: the ring's rotations and Ulysses' all-to-alls ride it."""
+    return _axis_group(mesh, "sp")
+
+
+def replica_group(mesh: DeviceMesh):
+    """The group the train step Averages gradients over: every rank
+    that holds this rank's parameter shards, i.e. the ranks of this
+    rank's ``(f, t)`` over the dp and sp axes. On a dp-only mesh it is
+    the dp group; with sp alone, the sp group; with both, the flattened
+    dp x sp group :func:`build_mesh` made. (The fsdp step reduces over
+    fsdp and then dp itself.)"""
+    group = getattr(mesh, "_replica_group", None)
+    if group is not None:
+        return group
+    names = tuple(mesh.mesh_dim_names or ())
+    if "sp" in names:
+        if mesh_axis_size(mesh, "dp") > 1:
+            raise ValueError("a dp x sp mesh from outside build_mesh has "
+                             "no replica group")
+        return mesh.get_group("sp")
+    return mesh.get_group("dp")
+
+
+class _MeshView:
+    """The axes of a mesh but some, read as :class:`DeviceMesh` is read
+    here (names, sizes, groups, this rank's index)."""
+
+    def __init__(self, mesh, drop):
+        names = tuple(mesh.mesh_dim_names or ())
+        self._mesh = mesh
+        self._dims = [i for i, a in enumerate(names) if a not in drop]
+        self.mesh_dim_names = tuple(names[i] for i in self._dims)
+        self.device_type = mesh.device_type
+
+    def size(self, dim: Optional[int] = None) -> int:
+        if dim is None:
+            return math.prod(self._mesh.size(i) for i in self._dims)
+        return self._mesh.size(self._dims[dim])
+
+    def get_group(self, name: str):
+        return self._mesh.get_group(name)
+
+    def get_local_rank(self, name: str) -> int:
+        return self._mesh.get_local_rank(name)
+
+
+def without_axes(mesh: DeviceMesh, *names: str):
+    """``mesh`` as a forward sees it when the ``names`` axes are handled
+    outside it (the fsdp step gathers its leaves over fsdp first)."""
+    return _MeshView(mesh, names)
+
+
+def axis_index(mesh: DeviceMesh, name: str) -> int:
+    """This rank's index along the axis ``name`` (0 for an absent
+    axis)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return mesh.get_local_rank(name) if name in names else 0
 
 
 def dp_group(mesh: DeviceMesh):
     """The process group of ``mesh``'s dp axis, for a data-parallel
     mesh. Raises if the mesh has no dp axis or any other axis > 1 (the
-    fsdp step takes :func:`data_groups`)."""
+    fsdp step takes :func:`data_groups`, the tp/sp step
+    :func:`replica_group`)."""
     names = tuple(mesh.mesh_dim_names or ())
     bad = {a: mesh.size(i) for i, a in enumerate(names)
            if a != "dp" and mesh.size(i) != 1}
     if bad:
-        raise NotImplementedError(f"mesh axes {bad}: {SHARDING_TODO}")
+        raise ValueError(f"dp_group takes a data-parallel mesh; this one "
+                         f"has axes {bad}")
     if "dp" not in names:
         raise ValueError(f"the mesh has no dp axis (dims {names})")
     return mesh.get_group("dp")

@@ -5,8 +5,9 @@ raises instead of falling back to the CPU or the plain version. The
 process world does not come up on gloo when CUDA was asked for, nor
 alone when the launcher says there are more ranks (nor does the eager
 runtime without the port's launcher or a controller address), the
-unported paths (Adasum, tp/sp/ep/pp meshes) raise naming their ROADMAP
-items, and the quantized codecs raise the reference's usage errors. The launcher and the elastic modules load
+unported paths (Adasum, ep/pp meshes) raise naming their ROADMAP
+items, and the quantized codecs raise the reference's
+usage errors, a codec on a tp/sp mesh included. The launcher and the elastic modules load
 no ``cloudpickle`` either. ``chip_smoke.py`` imports none of it."""
 
 import os
@@ -24,8 +25,10 @@ import horovod_tpu_torch
 import horovod_tpu_torch.models
 import horovod_tpu_torch.ops.flash_attention
 import horovod_tpu_torch.ops._kernels
+import horovod_tpu_torch.parallel
 import horovod_tpu_torch.parallel.ring_attention
 import horovod_tpu_torch.parallel.mesh
+import horovod_tpu_torch.parallel.tensor_parallel
 import horovod_tpu_torch.common.ops_enum
 import horovod_tpu_torch.common.topology
 import horovod_tpu_torch.compression
@@ -162,9 +165,11 @@ def test_a_larger_world_never_runs_alone(monkeypatch):
         build_mesh(dp=2)
 
 
-class _TpMesh:
-    """Stands in for a ``DeviceMesh`` with dims dp=1, tp=2."""
-    mesh_dim_names = ("dp", "tp")
+class _Mesh:
+    """Stands in for a ``DeviceMesh`` with dims dp=1 and ``axis``=2."""
+
+    def __init__(self, axis):
+        self.mesh_dim_names = ("dp", axis)
 
     def size(self, dim):
         return (1, 2)[dim]
@@ -209,16 +214,20 @@ def test_unported_collective_paths_raise_naming_their_items():
     for codec in (Compression.int8, Compression.bf16, Compression.fp16):
         with pytest.raises(ValueError, match="needs a data axis"):
             ttr.make_train_step(cfg, "cpu", compression=codec)
-        with pytest.raises(ValueError, match="no explicit gradient"):
-            ttr.make_train_step(cfg, "cpu", mesh=_TpMesh(),
-                                compression=codec)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ttr.make_train_step(cfg, "cpu", mesh=_TpMesh())
-    for axis in ("tp", "sp", "pp", "ep"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        for axis in ("tp", "sp", "pp", "ep"):
+            with pytest.raises(ValueError, match="no explicit gradient"):
+                ttr.make_train_step(cfg, "cpu", mesh=_Mesh(axis),
+                                    compression=codec)
+    # tp and sp are ported (tests/test_torch_tensor_parallel.py); pp and
+    # ep are not.
+    for axis, item in (("pp", "item 12"), ("ep", "item 11")):
+        with pytest.raises(NotImplementedError, match=item):
+            ttr.make_train_step(cfg, "cpu", mesh=_Mesh(axis))
+        with pytest.raises(NotImplementedError, match=item):
             build_mesh(**{axis: 2})
-    with pytest.raises(RuntimeError, match="init_process_group"):
-        build_mesh(fsdp=2)
+    for axes in ({"fsdp": 2}, {"tp": 2}, {"sp": 2}):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            build_mesh(**axes)
 
 
 def test_cast_codecs_cast_only_wide_floats():

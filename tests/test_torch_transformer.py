@@ -145,12 +145,14 @@ class _SpMesh:
 
 def test_unported_paths_raise():
     _, cfg_t = _cfgs()
-    with pytest.raises(NotImplementedError, match="sp=2.*item 10"):
-        make_sp_attention(_SpMesh(), impl="ring")
+    # Item 10 is ported; "local" attends within one chunk and raises on
+    # a split sequence.
+    with pytest.raises(NotImplementedError, match="sp=2"):
+        make_sp_attention(_SpMesh(), impl="local")
     with pytest.raises(NotImplementedError, match="item 11"):
         ttr.init_params(dataclasses.replace(cfg_t, n_experts=4),
                         torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="ring_flash"):
         make_sp_attention(_SpMesh(), impl="flash")
     with pytest.raises(ValueError, match="unknown"):
         make_sp_attention(None, impl="nope")
