@@ -24,7 +24,6 @@ Averaged over (the ranks that hold the same parameter shards).
 from __future__ import annotations
 
 import datetime
-import math
 import os
 from typing import Optional
 
@@ -103,10 +102,7 @@ def build_mesh(*, dp: int = -1, fsdp: int = 1, pp: int = 1, sp: int = 1,
     ``"fsdp"``, ``"sp"`` and ``"tp"`` above 1, in that order.
     ``dp=-1`` takes every process the other axes leave; ``dp * fsdp *
     sp * tp`` must be the world size. pp/ep > 1 raise until their
-    slices are ported.
-
-    With dp and sp both above 1 it also makes the flattened dp x sp
-    group of :func:`replica_group` (every rank takes part)."""
+    slices are ported."""
     others = {"pp": pp, "ep": ep}
     bad = {a: s for a, s in others.items() if s != 1}
     if bad:
@@ -132,15 +128,7 @@ def build_mesh(*, dp: int = -1, fsdp: int = 1, pp: int = 1, sp: int = 1,
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     names = ("dp",) + tuple(a for a, size in model.items() if size > 1)
     shape = (dp,) + tuple(size for size in model.values() if size > 1)
-    mesh = init_device_mesh(device_type, shape, mesh_dim_names=names)
-    if dp > 1 and sp > 1:
-        # Rank ((d * fsdp + f) * sp + s) * tp + t: one group for each
-        # (f, t), over every d and s.
-        lists = [[((d * fsdp + f) * sp + s) * tp + t
-                  for d in range(dp) for s in range(sp)]
-                 for f in range(fsdp) for t in range(tp)]
-        mesh._replica_group, _ = dist.new_subgroups_by_enumeration(lists)
-    return mesh
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 def data_parallel_mesh() -> DeviceMesh:
@@ -185,48 +173,21 @@ def replica_group(mesh: DeviceMesh):
     """The group the train step Averages gradients over: every rank
     that holds this rank's parameter shards, i.e. the ranks of this
     rank's ``(f, t)`` over the dp and sp axes. On a dp-only mesh it is
-    the dp group; with sp alone, the sp group; with both, the flattened
-    dp x sp group :func:`build_mesh` made. (The fsdp step reduces over
-    fsdp and then dp itself.)"""
-    group = getattr(mesh, "_replica_group", None)
-    if group is not None:
-        return group
-    names = tuple(mesh.mesh_dim_names or ())
-    if "sp" in names:
-        if mesh_axis_size(mesh, "dp") > 1:
-            raise ValueError("a dp x sp mesh from outside build_mesh has "
-                             "no replica group")
-        return mesh.get_group("sp")
-    return mesh.get_group("dp")
+    the dp group; with sp alone, the sp group; with both, the mesh's dp
+    and sp dims flattened into one (made on the first call, which every
+    rank makes; the mesh keeps it). (The fsdp step reduces over fsdp
+    and then dp itself.)"""
+    axes = tuple(a for a in ("dp", "sp") if mesh_axis_size(mesh, a) > 1)
+    if len(axes) == 2:
+        return mesh[axes]._flatten("dp_sp").get_group()
+    return mesh.get_group(axes[0] if axes else "dp")
 
 
-class _MeshView:
-    """The axes of a mesh but some, read as :class:`DeviceMesh` is read
-    here (names, sizes, groups, this rank's index)."""
-
-    def __init__(self, mesh, drop):
-        names = tuple(mesh.mesh_dim_names or ())
-        self._mesh = mesh
-        self._dims = [i for i, a in enumerate(names) if a not in drop]
-        self.mesh_dim_names = tuple(names[i] for i in self._dims)
-        self.device_type = mesh.device_type
-
-    def size(self, dim: Optional[int] = None) -> int:
-        if dim is None:
-            return math.prod(self._mesh.size(i) for i in self._dims)
-        return self._mesh.size(self._dims[dim])
-
-    def get_group(self, name: str):
-        return self._mesh.get_group(name)
-
-    def get_local_rank(self, name: str) -> int:
-        return self._mesh.get_local_rank(name)
-
-
-def without_axes(mesh: DeviceMesh, *names: str):
+def without_axes(mesh: DeviceMesh, *names: str) -> DeviceMesh:
     """``mesh`` as a forward sees it when the ``names`` axes are handled
-    outside it (the fsdp step gathers its leaves over fsdp first)."""
-    return _MeshView(mesh, names)
+    outside it (the fsdp step gathers its leaves over fsdp first): the
+    submesh of its other dims."""
+    return mesh[tuple(a for a in mesh.mesh_dim_names if a not in names)]
 
 
 def axis_index(mesh: DeviceMesh, name: str) -> int:
