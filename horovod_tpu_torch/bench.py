@@ -41,6 +41,19 @@ tokens, 4 rows a GPU), interleaved best-of-3 rounds of 5 steps, keys
 ``transformer_mfu_{comp_none,bf16,int8}``; on more than one GPU also
 the fsdp step over every GPU (``fsdp_comp_{none,bf16,int8}``).
 
+Then the MoE arms (:func:`run_moe`, the reference's ``_moe_worker``):
+one MoE layer (d_model 256, 8 experts, top-2, capacity factor 1.25,
+vocab 2048, 4 heads, d_ff 512, bf16, plain ``"local"`` attention) on an
+ep mesh over every process, 2 rows of 128 tokens a GPU, every rank
+holding every row: the GSPMD dispatch and, on more than one GPU, the
+quantized-alltoall island at codecs none, bf16 and int8 (none takes the
+GSPMD path, as the routing discipline says), interleaved best-of-3
+rounds of 3 steps after 2 warm-up steps; keys
+``moe_tokens_per_sec_{gspmd,none,bf16,int8}`` and, on more than one
+GPU, ``moe_dispatch_bytes_saved_pct`` (int8 against f32 slabs on one
+dispatch hop, from ``alltoall_wire_bytes``). Rank 0 prints ``MOEEXTRA
+{json}`` after each round.
+
 Its last line is the reference's primary line, ``{"metric":
 "resnet50_images_per_sec_per_chip", "value", "unit": "images/sec",
 "vs_baseline", "extra"}``, with the transformer keys in ``extra``.
@@ -49,6 +62,7 @@ Its last line is the reference's primary line, ``{"metric":
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -60,10 +74,12 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.compression import Compression
 from horovod_tpu_torch.models import resnet
+from horovod_tpu_torch.models.moe import capacity as moe_capacity
 from horovod_tpu_torch.models.transformer import (TransformerConfig,
                                                   make_train_step,
                                                   param_leaves, param_shapes,
                                                   shard_batch)
+from horovod_tpu_torch.ops.quantized import alltoall_wire_bytes
 from horovod_tpu_torch.parallel.mesh import (build_mesh, data_parallel_mesh,
                                              init_process_group)
 
@@ -83,6 +99,11 @@ CFG_COMP = TransformerConfig(
     remat=False)
 COMP_CODECS = (("none", None), ("bf16", Compression.bf16),
                ("int8", Compression.int8))
+#: The MoE arms' model (the reference's ``_moe_worker`` config).
+CFG_MOE = TransformerConfig(
+    vocab_size=2048, d_model=256, n_layers=1, n_heads=4, n_kv_heads=4,
+    d_ff=512, max_seq=128, dtype=torch.bfloat16, sp_attention="local",
+    remat=False, n_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
 
 #: The reference bench's ResNet-50 baseline, images/s per device (its
 #: ``REF_R50_IMG_PER_SEC_PER_DEVICE``, derived from Horovod's published
@@ -225,6 +246,58 @@ def run_compression(device, cfg: TransformerConfig = CFG_COMP, *,
     return out
 
 
+def run_moe(device, cfg: TransformerConfig = CFG_MOE, *, rows_per_gpu: int = 2,
+            seq: int = 128, iters: int = 3, rounds: int = 3) -> dict:
+    """The MoE arms (module docstring) on ``build_mesh(dp=1, ep=n)``:
+    each arm's best tokens/s per GPU over ``rounds`` interleaved rounds
+    of ``iters`` steps, after 2 warm-up steps. Rank 0 prints ``MOEEXTRA
+    {json}`` after each round. Returns the keys."""
+    n = dist.get_world_size()
+    lead = dist.get_rank() == 0
+    mesh = build_mesh(dp=1, ep=n)
+    rows = rows_per_gpu * n
+    toks = torch.randint(0, cfg.vocab_size, (rows, seq + 1),
+                         generator=torch.Generator(device).manual_seed(3),
+                         device=device)
+    batch = {"tokens": shard_batch(toks, mesh)}
+    arms = {"gspmd": ("gspmd", None)}
+    if n > 1:
+        arms.update({c: ("island", c) for c in ("none", "bf16", "int8")})
+    live, best, out = {}, {}, {}
+    for name, (disp, codec) in arms.items():
+        c = dataclasses.replace(cfg, moe_dispatch=disp, moe_compression=codec)
+        init_state, step = make_train_step(c, device, mesh=mesh)
+        state = init_state(torch.Generator(device).manual_seed(0))
+        for _ in range(2):
+            state, loss = step(state, batch)
+        loss.item()
+        live[name], best[name] = (step, state), 0.0
+    for _ in range(rounds):
+        for name, (step, state) in live.items():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                state, loss = step(state, batch)
+            loss.item()
+            dt = time.perf_counter() - t0
+            best[name] = max(best[name], rows * seq * iters / dt / n)
+        for name, tok_s in best.items():
+            out[f"moe_tokens_per_sec_{name}"] = round(tok_s, 1)
+        if lead:
+            print("MOEEXTRA " + json.dumps(out), flush=True)
+    if n > 1:
+        shape = (n, cfg.n_experts // n, rows // n,
+                 moe_capacity(cfg.moe, seq), cfg.d_model)
+        out["moe_dispatch_bytes_saved_pct"] = round(100.0 * (
+            1.0 - alltoall_wire_bytes(shape, "int8")
+            / alltoall_wire_bytes(shape, "none")), 1)
+        if lead:
+            print("MOEEXTRA " + json.dumps(out), flush=True)
+    del live
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_resnet(mesh, device, cfg: resnet.ResNetConfig = RESNET50, *,
                image_size: int = 224, batch: int = 0, warmup: int = 10,
                rounds: int = 10, iters: int = 10) -> dict:
@@ -287,6 +360,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         extra = run(mesh, device)
         extra.update(run_compression(device))
+        extra.update(run_moe(device))
         if dist.get_rank() == 0:
             print(json.dumps(primary_line(r50["images_per_sec_per_gpu"],
                                           extra)), flush=True)

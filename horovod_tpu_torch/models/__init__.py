@@ -9,6 +9,12 @@ from horovod_tpu_torch.models.resnet import (  # noqa: F401
     resnet50,
     resnet101,
 )
+from horovod_tpu_torch.models.moe import (  # noqa: F401
+    MoEConfig,
+    make_moe_ffn,
+    moe_ffn,
+    moe_ffn_island,
+)
 from horovod_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
     init_params as init_transformer,

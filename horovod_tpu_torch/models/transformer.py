@@ -1,7 +1,9 @@
 """Llama-family decoder LM in PyTorch — the counterpart of
 :mod:`horovod_tpu.models.transformer`, on one device, data-parallel over
-a process group, fsdp-sharded over a dp x fsdp mesh, or tensor- and
-sequence-parallel over a dp x sp x tp mesh.
+a process group, fsdp-sharded over a dp x fsdp mesh, tensor- and
+sequence-parallel over a dp x sp x tp mesh, or expert-parallel over a
+dp x tp x ep mesh (the pipeline over pp is
+:mod:`horovod_tpu_torch.parallel.pipeline`).
 
 Parameters are a plain dictionary with the reference's layout: per-layer
 leaves stacked on a leading ``n_layers`` dim (``layers["wq"]`` is
@@ -16,7 +18,9 @@ Attention goes through :func:`make_sp_attention`: ``"flash"`` is the
 Hopper kernel, ``"local"`` the plain einsum, and the sequence-parallel
 impls (the default ``"ring"`` among them) are the plain einsum on one
 device, as in the reference, and their ring or all-to-all bodies over
-the sp group of a mesh with sp > 1.
+the sp group of a mesh with sp > 1. With ``n_experts > 0`` every
+layer's FFN is the MoE block of :mod:`horovod_tpu_torch.models.moe`
+(``layers["moe"]``), its experts sharded over ep.
 
 On a tp mesh each rank holds its shard of every leaf
 (:func:`shard_params`, by :func:`param_specs`): Megatron's column- and
@@ -52,19 +56,18 @@ from horovod_tpu_torch.ops.quantized import (_CAST_WIRE, _INV127,
                                              int8_blocks,
                                              quantized_allreduce,
                                              quantized_reduce_scatter)
+from horovod_tpu_torch.models import moe as moe_lib
 from horovod_tpu_torch.parallel.mesh import (SHARDING_TODO, axis_index,
-                                             data_groups, mesh_axis_size,
-                                             replica_group, tp_group,
-                                             unported_axes, without_axes)
+                                             check_ported,
+                                             data_groups, ep_group,
+                                             mesh_axis_size, pp_group,
+                                             prepare_groups, replica_group,
+                                             tp_group, without_axes)
 from horovod_tpu_torch.parallel.ring_attention import make_sp_attention
 from horovod_tpu_torch.parallel.tensor_parallel import (copy_to_tp,
                                                         fsdp_allgather,
                                                         reduce_from_tp,
                                                         tp_allreduce)
-
-_MOE_TODO = ("MoE layers (n_experts > 0) are not ported yet (ROADMAP Queue 1 "
-             "item 11)")
-
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -93,7 +96,8 @@ class TransformerConfig:
     flash_block_k: Optional[int] = None
     scan_unroll: int = 1          # not read: layers run as a Python loop
     remat_prevent_cse: bool = False  # not read
-    # Mixture-of-Experts: n_experts > 0 raises until MoE is ported.
+    # Mixture-of-Experts: n_experts > 0 replaces the dense SwiGLU FFN with
+    # the MoE FFN in every layer (models/moe.py), experts over ep.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -118,53 +122,75 @@ class TransformerConfig:
         base.update(kw)
         return cls(**base)
 
+    @property
+    def moe(self) -> Optional[moe_lib.MoEConfig]:
+        if self.n_experts <= 0:
+            return None
+        return moe_lib.MoEConfig(n_experts=self.n_experts,
+                                 top_k=self.moe_top_k,
+                                 capacity_factor=self.moe_capacity_factor)
+
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-               "w_up", "w_down")
+_ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+_FFN_KEYS = ("w_gate", "w_up", "w_down")
+#: A dense layer's leaves; an MoE layer has ``_ATTN_KEYS`` and ``"moe"``
+#: (the leaves of :func:`~horovod_tpu_torch.models.moe.moe_param_specs`).
+_LAYER_KEYS = _ATTN_KEYS + _FFN_KEYS
+_MOE_KEYS = ("router",) + moe_lib.EXPERT_KEYS
 _TOP_KEYS = ("embed", "layers", "final_norm", "lm_head")
+#: The fixed order of every key at every level of a parameter tree.
+_ORDER = {k: i for i, k in enumerate(_TOP_KEYS + _ATTN_KEYS + ("moe",)
+                                     + _MOE_KEYS)}
 
 
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
-    """The parameter layout: ``{name: shape}``, layers nested."""
+    """The parameter layout: ``{name: shape}``, layers nested (an MoE
+    layer's block under ``layers["moe"]``)."""
     L, D, H, Hkv, Dh, F_, V = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                                cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
                                cfg.vocab_size)
-    return {
-        "embed": (V, D),
-        "layers": {
-            "attn_norm": (L, D), "wq": (L, D, H * Dh),
-            "wk": (L, D, Hkv * Dh), "wv": (L, D, Hkv * Dh),
-            "wo": (L, H * Dh, D), "mlp_norm": (L, D),
-            "w_gate": (L, D, F_), "w_up": (L, D, F_), "w_down": (L, F_, D),
-        },
-        "final_norm": (D,),
-        "lm_head": (D, V),
-    }
+    layers = {"attn_norm": (L, D), "wq": (L, D, H * Dh),
+              "wk": (L, D, Hkv * Dh), "wv": (L, D, Hkv * Dh),
+              "wo": (L, H * Dh, D), "mlp_norm": (L, D)}
+    if cfg.moe is not None:
+        layers["moe"] = moe_lib.moe_param_shapes(L, D, F_, cfg.moe)
+    else:
+        layers.update({"w_gate": (L, D, F_), "w_up": (L, D, F_),
+                       "w_down": (L, F_, D)})
+    return {"embed": (V, D), "layers": layers, "final_norm": (D,),
+            "lm_head": (D, V)}
 
 
 def param_specs(cfg: TransformerConfig) -> Dict[str, Any]:
     """The reference's partition specs (``param_specs``), each leaf a
     tuple of mesh-axis names (or None) per dim: ``tp`` shards heads /
-    FFN hidden / vocab, ``fsdp`` the other matrix dim; layer-stacked
-    leaves lead with None (:func:`shard_params` applies them)."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
-    return {
-        "embed": ("tp", "fsdp"),
-        "layers": {
-            "attn_norm": (None, None), "wq": (None, "fsdp", "tp"),
-            "wk": (None, "fsdp", "tp"), "wv": (None, "fsdp", "tp"),
-            "wo": (None, "tp", "fsdp"), "mlp_norm": (None, None),
-            "w_gate": (None, "fsdp", "tp"), "w_up": (None, "fsdp", "tp"),
-            "w_down": (None, "tp", "fsdp"),
-        },
-        "final_norm": (None,),
-        "lm_head": ("fsdp", "tp"),
-    }
+    FFN hidden / vocab, ``fsdp`` the other matrix dim, ``ep`` the
+    experts; layer-stacked leaves lead with None (:func:`shard_params`
+    applies them, and shards that dim over pp)."""
+    layers = {"attn_norm": (None, None), "wq": (None, "fsdp", "tp"),
+              "wk": (None, "fsdp", "tp"), "wv": (None, "fsdp", "tp"),
+              "wo": (None, "tp", "fsdp"), "mlp_norm": (None, None)}
+    if cfg.moe is not None:
+        layers["moe"] = moe_lib.moe_param_specs()
+    else:
+        layers.update({"w_gate": (None, "fsdp", "tp"),
+                       "w_up": (None, "fsdp", "tp"),
+                       "w_down": (None, "tp", "fsdp")})
+    return {"embed": ("tp", "fsdp"), "layers": layers,
+            "final_norm": (None,), "lm_head": ("fsdp", "tp")}
+
+
+def leaf_kind(name: str) -> str:
+    """``"expert"``, ``"layer"`` or ``"top"`` for a leaf named as
+    :func:`named_param_leaves` names it: the kinds of
+    :data:`~horovod_tpu_torch.parallel.mesh.REPLICA_AXES`."""
+    if name.startswith("layers.moe.") and name != "layers.moe.router":
+        return "expert"
+    return "layer" if name.startswith("layers.") else "top"
 
 
 def _spec_dim(spec, axis: str) -> Optional[int]:
@@ -210,39 +236,72 @@ def check_tp(cfg: TransformerConfig, tp: int, sp: int = 1) -> None:
                          f"not split over sp={sp}")
 
 
+def shard_dims(cfg: TransformerConfig, mesh) -> Dict[str, Any]:
+    """``((axis, dim), ...)`` of every leaf on ``mesh``: the dim of the
+    leaf each axis above 1 splits (:func:`param_specs`; tp by
+    :func:`tp_shard_dims`; pp the stacked layer dim of every layer
+    leaf). An axis that leaves the leaf whole is absent."""
+    sizes = {a: mesh_axis_size(mesh, a) for a in ("tp", "fsdp", "ep", "pp")}
+    tdims = param_leaves(tp_shard_dims(cfg, sizes["tp"]))
+    out = []
+    for (name, spec), td in zip(named_param_leaves(param_specs(cfg)), tdims):
+        dims = {"tp": td, "fsdp": _fsdp_spec_dim(spec),
+                "ep": _spec_dim(spec, "ep"),
+                "pp": 0 if name.startswith("layers.") else None}
+        out.append(tuple((a, d) for a, d in dims.items()
+                         if d is not None and sizes[a] > 1))
+    return params_from_leaves(out, param_specs(cfg))
+
+
+def _check_shardable(cfg: TransformerConfig, mesh) -> None:
+    """Raise unless ``cfg`` splits over ``mesh``: the compositions not
+    ported yet (item 16; MoE with sp or fsdp among them), tp's
+    divisibility (:func:`check_tp`), experts over ep, layers over pp."""
+    check_ported(mesh)
+    bad = {a: mesh_axis_size(mesh, a) for a in ("sp", "fsdp")
+           if mesh_axis_size(mesh, a) > 1}
+    if cfg.moe is not None and bad:
+        raise NotImplementedError(f"MoE with mesh axes {bad}: "
+                                  f"{SHARDING_TODO}")
+    check_tp(cfg, mesh_axis_size(mesh, "tp"), mesh_axis_size(mesh, "sp"))
+    ep, pp = mesh_axis_size(mesh, "ep"), mesh_axis_size(mesh, "pp")
+    if cfg.moe is not None and cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} does not divide over "
+                         f"ep={ep}; each ep rank holds E/ep experts")
+    if cfg.n_layers % pp:
+        raise ValueError(f"n_layers={cfg.n_layers} not divisible by "
+                         f"pp={pp}")
+
+
 def shard_params(params: Dict[str, Any], cfg: TransformerConfig,
                  mesh) -> Dict[str, Any]:
     """This rank's shard of a full parameter tree (from
     :func:`init_params` or :func:`params_from_jax`) on ``mesh``, by
-    :func:`param_specs`: chunk ``t`` of each leaf's tp dim
-    (:func:`tp_shard_dims`), then chunk ``f`` of its fsdp dim. A leaf
-    with nothing to split is returned as it is; split ones are new,
-    detached, contiguous tensors."""
-    tp, fsdp = mesh_axis_size(mesh, "tp"), mesh_axis_size(mesh, "fsdp")
-    check_tp(cfg, tp, mesh_axis_size(mesh, "sp"))
-    t, f = axis_index(mesh, "tp"), axis_index(mesh, "fsdp")
-    tdims = param_leaves(tp_shard_dims(cfg, tp))
-    fdims = param_leaves(map_params(_fsdp_spec_dim, param_specs(cfg)))
+    :func:`shard_dims`: chunk ``t`` of each leaf's tp dim, chunk ``f``
+    of its fsdp dim, chunk ``e`` of an expert leaf's expert dim and
+    chunk ``p`` (this stage's ``L / pp`` layers) of a layer leaf. A
+    leaf with nothing to split is returned as it is; split ones are
+    new, detached, contiguous tensors."""
+    _check_shardable(cfg, mesh)
     out = []
-    for p, td, fd in zip(param_leaves(params), tdims, fdims):
+    for p, dims in zip(param_leaves(params),
+                       param_leaves(shard_dims(cfg, mesh))):
         piece = p
-        if tp > 1 and td is not None:
-            piece = piece.detach().chunk(tp, td)[t]
-        if fsdp > 1 and fd is not None:
-            piece = piece.detach().chunk(fsdp, fd)[f]
+        for axis, d in dims:
+            piece = piece.detach().chunk(mesh_axis_size(mesh, axis),
+                                         d)[axis_index(mesh, axis)]
         out.append(p if piece is p else piece.clone(
             memory_format=torch.contiguous_format))
-    return params_from_leaves(out)
+    return params_from_leaves(out, params)
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters with the reference's layout and distribution:
     norms 1, every matrix ``normal · fan_in^-0.5`` drawn in f32 and
-    cast to ``cfg.dtype``. ``generator`` lives on ``device`` (which
-    defaults to CUDA). The draws are PyTorch's, not JAX's bits."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
+    cast to ``cfg.dtype`` (an MoE router stays f32). ``generator``
+    lives on ``device`` (which defaults to CUDA). The draws are
+    PyTorch's, not JAX's bits."""
     device = resolve_device(device)
     D, F_ = cfg.d_model, cfg.d_ff
     shapes = param_shapes(cfg)
@@ -258,9 +317,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     ls = shapes["layers"]
     fan_in = {"wq": D, "wk": D, "wv": D, "wo": cfg.n_heads * cfg.head_dim,
               "w_gate": D, "w_up": D, "w_down": F_}
+    keys = _ATTN_KEYS if cfg.moe is not None else _LAYER_KEYS
     layers = {name: (ones(ls[name]) if name.endswith("norm")
                      else dense(ls[name], fan_in[name]))
-              for name in _LAYER_KEYS}
+              for name in keys}
+    if cfg.moe is not None:
+        layers["moe"] = moe_lib.init_moe_params(
+            generator, cfg.n_layers, D, F_, cfg.moe, cfg.dtype, device)
     return {
         "embed": dense(shapes["embed"], D),
         "layers": layers,
@@ -283,48 +346,53 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     ``device``. Same keys, shapes, dtypes and ``x @ W`` orientation;
     nothing is transposed."""
     device = resolve_device(device)
-    if "moe" in tree.get("layers", {}):
-        raise NotImplementedError(_MOE_TODO)
-    if set(tree) != set(_TOP_KEYS) or set(tree["layers"]) != set(_LAYER_KEYS):
-        raise ValueError(f"not a dense transformer parameter tree: keys "
-                         f"{sorted(tree)}, layers "
-                         f"{sorted(tree.get('layers', {}))}")
+    layers = tree.get("layers", {})
+    want = (set(_ATTN_KEYS) | {"moe"} if "moe" in layers
+            else set(_LAYER_KEYS))
+    if (set(tree) != set(_TOP_KEYS) or set(layers) != want
+            or set(layers.get("moe", _MOE_KEYS)) != set(_MOE_KEYS)):
+        raise ValueError(f"not a transformer parameter tree: keys "
+                         f"{sorted(tree)}, layers {sorted(layers)}")
     return map_params(lambda a: _to_tensor(a, device), tree)
+
+
+def _keys(tree: Dict[str, Any]):
+    """A tree level's keys in the fixed order (other keys after, by
+    name: a stage's own parameter trees)."""
+    return sorted(tree, key=lambda k: (_ORDER.get(k, len(_ORDER)), k))
 
 
 def map_params(fn, params: Dict[str, Any]) -> Dict[str, Any]:
     """A parameter tree of the same layout with ``fn`` applied to every
     leaf."""
-    return {
-        "embed": fn(params["embed"]),
-        "layers": {name: fn(params["layers"][name]) for name in _LAYER_KEYS},
-        "final_norm": fn(params["final_norm"]),
-        "lm_head": fn(params["lm_head"]),
-    }
+    return {k: (map_params(fn, params[k]) if isinstance(params[k], dict)
+                else fn(params[k])) for k in _keys(params)}
+
+
+def named_param_leaves(params: Dict[str, Any], prefix=""):
+    """``(name, leaf)`` for every parameter, in a fixed order (embed, the
+    layer leaves, final_norm, lm_head); a layer-stacked leaf is named
+    ``layers.<key>``, an MoE leaf ``layers.moe.<key>``."""
+    out = []
+    for k in _keys(params):
+        v = params[k]
+        if isinstance(v, dict):
+            out += named_param_leaves(v, f"{prefix}{k}.")
+        else:
+            out.append((f"{prefix}{k}", v))
+    return out
 
 
 def param_leaves(params: Dict[str, Any]):
-    """Every parameter tensor, in a fixed order."""
-    return ([params["embed"]]
-            + [params["layers"][name] for name in _LAYER_KEYS]
-            + [params["final_norm"], params["lm_head"]])
+    """Every parameter tensor, in :func:`named_param_leaves`' order."""
+    return [v for _, v in named_param_leaves(params)]
 
 
-def params_from_leaves(leaves) -> Dict[str, Any]:
-    """The parameter tree of ``leaves`` in :func:`param_leaves`' order."""
-    leaves = list(leaves)
-    n = len(_LAYER_KEYS)
-    return {"embed": leaves[0],
-            "layers": dict(zip(_LAYER_KEYS, leaves[1:1 + n])),
-            "final_norm": leaves[1 + n], "lm_head": leaves[2 + n]}
-
-
-def named_param_leaves(params: Dict[str, Any]):
-    """``(name, tensor)`` for every parameter, in :func:`param_leaves`'
-    order; a layer-stacked leaf is named ``layers.<key>``."""
-    names = (["embed"] + [f"layers.{k}" for k in _LAYER_KEYS]
-             + ["final_norm", "lm_head"])
-    return list(zip(names, param_leaves(params)))
+def params_from_leaves(leaves, like: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree of ``leaves`` (in :func:`param_leaves`' order) laid out
+    as the parameter tree ``like``."""
+    it = iter(leaves)
+    return map_params(lambda _: next(it), like)
 
 
 # ---------------------------------------------------------------------------
@@ -355,10 +423,14 @@ def _rope(x, pos, theta):
 
 
 def decoder_layer(cfg: TransformerConfig, attend, x, lp, pos_offset=0,
-                  tp=None):
-    """One pre-norm decoder block (attention + dense SwiGLU FFN) on
+                  tp=None, moe_fn=None):
+    """One pre-norm decoder block (attention + SwiGLU FFN or MoE) on
     ``x`` [B, T, D]; ``lp`` is this layer's param dict (no leading L
-    dim). Returns ``(x, aux)``, aux 0 for the dense FFN.
+    dim). Returns ``(x, aux)``: aux 0 for the dense FFN, the
+    load-balancing term for MoE. ``moe_fn(h, lp["moe"]) -> (y, aux)``
+    is the MoE FFN call (:func:`~horovod_tpu_torch.models.moe.
+    make_moe_ffn`'s choice; None: :func:`~horovod_tpu_torch.models.moe.
+    moe_ffn` with no mesh).
 
     ``pos_offset`` is the global position of ``x``'s first token (a
     sequence chunk's offset on an sp mesh). With ``tp`` (the tp process
@@ -368,8 +440,6 @@ def decoder_layer(cfg: TransformerConfig, attend, x, lp, pos_offset=0,
     this rank's ``H / tp`` query heads. Where wk/wv are whole (``Hkv %
     tp``) each rank takes the kv head of each of its query heads, and
     :func:`copy_to_tp` on the weights sums their gradients over tp."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     Dh = cfg.head_dim
     H, Hkv = lp["wq"].shape[-1] // Dh, lp["wk"].shape[-1] // Dh
     B, T = x.shape[0], x.shape[1]
@@ -398,6 +468,13 @@ def decoder_layer(cfg: TransformerConfig, attend, x, lp, pos_offset=0,
     o = attend(q, kk, vv).reshape(B, T, H * Dh)
     x = x + reduce_from_tp(o @ lp["wo"], tp).to(cfg.dtype)
 
+    if "moe" in lp:
+        h = _rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        if moe_fn is None:
+            y, aux = moe_lib.moe_ffn(h, lp["moe"], cfg.moe)
+        else:
+            y, aux = moe_fn(h, lp["moe"])
+        return x + y.to(cfg.dtype), aux
     h = copy_to_tp(_rmsnorm(x, lp["mlp_norm"], cfg.norm_eps), tp)
     g = F.silu((h @ lp["w_gate"]).float())
     u = (h @ lp["w_up"]).float()
@@ -498,35 +575,64 @@ def forward_with_aux(params, tokens, cfg: TransformerConfig, mesh=None):
     and is recomputed whole in the backward, whatever
     ``cfg.remat_policy`` says. ``mesh`` selects the attention as in the
     reference. On a data-parallel mesh each rank runs its own rows. On
-    a tp/sp mesh ``params`` are this rank's shards (:func:`shard_params`)
-    and ``tokens`` its rows and sequence chunk (:func:`shard_batch`'s
-    inputs); the logits are this rank's ``[B, T / sp, V / tp]`` block."""
-    if cfg.remat:
-        check_remat_policy(cfg)
-    attend = make_sp_attention(mesh, impl=cfg.sp_attention, causal=True)
-    tp = None if mesh is None else tp_group(mesh)
-    pos_offset = (0 if mesh is None
-                  else axis_index(mesh, "sp") * tokens.shape[1])
-    layer = functools.partial(decoder_layer, cfg, attend,
-                              pos_offset=pos_offset, tp=tp)
+    a tp/sp/ep mesh ``params`` are this rank's shards
+    (:func:`shard_params`) and ``tokens`` its rows and sequence chunk
+    (:func:`shard_batch`'s inputs); the logits are this rank's ``[B, T /
+    sp, V / tp]`` block."""
     x = embed_lookup(params["embed"], tokens.long(), cfg.dtype, mesh,
                      full_shape=(cfg.vocab_size, cfg.d_model))
+    x, aux = run_layers(params["layers"], x, cfg, mesh)
+    return head(params, x, cfg, mesh), aux
+
+
+def layer_fn(cfg: TransformerConfig, mesh, seq_len: int):
+    """``layer(x, lp) -> (x, aux)``: :func:`decoder_layer` with
+    ``mesh``'s attention, tp group and MoE call, at the position offset
+    of this rank's chunk of ``seq_len`` tokens."""
+    attend = make_sp_attention(mesh, impl=cfg.sp_attention, causal=True)
+    moe_fn = (moe_lib.make_moe_ffn(cfg.moe, mesh, dispatch=cfg.moe_dispatch,
+                                   codec=cfg.moe_compression)
+              if cfg.moe is not None else None)
+    return functools.partial(
+        decoder_layer, cfg, attend, tp=None if mesh is None else tp_group(mesh),
+        moe_fn=moe_fn,
+        pos_offset=0 if mesh is None else axis_index(mesh, "sp") * seq_len)
+
+
+def _index_layer(stacked, i):
+    return {k: (_index_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in stacked.items()}
+
+
+def run_layers(stacked, x, cfg: TransformerConfig, mesh=None):
+    """The layers of ``stacked`` (leaves ``[L, ...]``) on ``x`` in turn,
+    each under ``torch.utils.checkpoint`` with ``cfg.remat`` (recomputed
+    whole in the backward, whatever ``cfg.remat_policy`` says); returns
+    ``(x, summed aux)``."""
+    if cfg.remat:
+        check_remat_policy(cfg)
+    layer = layer_fn(cfg, mesh, x.shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    stacked = params["layers"]
     # A layer's recompute must issue every collective of its forward on
-    # every rank, so it may not stop early on a tp/sp mesh.
-    early_stop = tp is None and not (mesh is not None
-                                     and mesh_axis_size(mesh, "sp") > 1)
+    # every rank, so it may not stop early on a mesh with model axes.
+    early_stop = mesh is None or all(
+        mesh_axis_size(mesh, a) == 1 for a in ("sp", "tp", "ep"))
     for i in range(stacked["wq"].shape[0]):
-        lp = {name: w[i] for name, w in stacked.items()}
+        lp = _index_layer(stacked, i)
         if cfg.remat:
             with set_checkpoint_early_stop(early_stop):
                 x, a = checkpoint(layer, x, lp, use_reentrant=False)
         else:
             x, a = layer(x, lp)
         aux = aux + a
+    return x, aux
+
+
+def head(params, x, cfg: TransformerConfig, mesh=None):
+    """final_norm and lm_head (column-parallel over tp): the logits."""
+    tp = None if mesh is None else tp_group(mesh)
     x = _rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return copy_to_tp(x, tp) @ params["lm_head"], aux
+    return copy_to_tp(x, tp) @ params["lm_head"]
 
 
 def forward(params, tokens, cfg: TransformerConfig, mesh=None):
@@ -586,12 +692,18 @@ def lm_loss(params, batch, cfg: TransformerConfig, mesh=None):
     tokens = batch["tokens"]
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward_with_aux(params, inp, cfg, mesh)
+    return token_nll(logits, tgt, mesh).mean() + aux
+
+
+def token_nll(logits, tgt, mesh=None):
+    """Per-token f32 cross-entropy of ``logits`` against ``tgt``:
+    vocab-parallel over the tp group of ``mesh``
+    (:func:`vocab_parallel_nll`), the plain log-softmax otherwise."""
     tp = None if mesh is None else tp_group(mesh)
     if tp is not None:
-        return vocab_parallel_nll(logits, tgt, tp).mean() + aux
+        return vocab_parallel_nll(logits, tgt, tp)
     logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
-    return nll.mean() + aux
+    return -torch.gather(logp, -1, tgt[..., None].long())[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -610,21 +722,24 @@ def default_optimizer(params):
 def _dispatch_mesh(mesh, codec: str) -> int:
     """The reference's ``compression=`` dispatcher checks, for every
     mesh: returns the fsdp size. A codec on a mesh with tp/sp/pp/ep > 1
-    raises the reference's ValueError; pp/ep > 1 raise
-    NotImplementedError (not ported); a codec with no data axis
-    raises."""
-    model = {a: mesh_axis_size(mesh, a) for a in ("sp", "tp")
+    raises the reference's ValueError; compositions not ported yet
+    raise NotImplementedError (:func:`~horovod_tpu_torch.parallel.mesh.
+    check_ported`); a codec with no data axis raises."""
+    model = {a: mesh_axis_size(mesh, a) for a in ("pp", "sp", "tp", "ep")
              if mesh_axis_size(mesh, a) > 1}
-    bad = unported_axes(mesh)
-    if (bad or model) and codec != "none":
+    if model and codec != "none":
         raise ValueError(
             f"make_train_step(compression={codec!r}) quantizes the "
             f"data-parallel gradient allreduce and the fsdp gradient "
-            f"reduce-scatter; mesh axes {sorted({**model, **bad}.items())} "
+            f"reduce-scatter; mesh axes {sorted(model.items())} "
             "have no explicit gradient collective to intercept. Use a "
             "dp/fsdp mesh, or compression=None.")
-    if bad:
-        raise NotImplementedError(f"mesh axes {bad}: {SHARDING_TODO}")
+    check_ported(mesh)
+    if "pp" in model:
+        raise ValueError(
+            f"a mesh with pp={model['pp']} trains through the pipeline: "
+            "use horovod_tpu_torch.parallel.make_pp_train_step (GPipe) "
+            "or make_pp_train_step_1f1b")
     nfsdp = mesh_axis_size(mesh, "fsdp")
     if "dp" not in tuple(mesh.mesh_dim_names or ()) and nfsdp <= 1:
         raise ValueError(
@@ -671,26 +786,34 @@ def make_train_step(cfg: TransformerConfig, device=None, optimizer=None, *,
     ``state["ef"]`` (a parameter-layout tree, this rank's own). A mesh
     with ``fsdp > 1`` takes the fsdp step (:func:`_make_fsdp_train_step`)
     with any codec, ``"none"`` included, and composes with tp and sp. A
-    codec with tp/sp, or with no data axis, raises; so do pp/ep > 1.
+    codec with tp/sp/pp/ep, or with no data axis, raises.
+
+    On a mesh with ep > 1 (with dp and tp; ``cfg.n_experts > 0`` puts
+    the MoE block in every layer) each rank holds its ``E / ep``
+    experts and every ep rank runs the same rows; each gradient is
+    reduced over the ranks that hold the same shard of its leaf
+    (:func:`reduce_gradients`), and the loss is the Average over dp. A
+    pp mesh trains through :mod:`horovod_tpu_torch.parallel.pipeline`.
     """
-    if cfg.n_experts > 0:
-        raise NotImplementedError(_MOE_TODO)
     codec = in_jit_codec(compression)
     if mesh is None and codec != "none":
         raise ValueError("compression= needs a data axis ('dp', or 'fsdp' "
                          "> 1); no mesh was given")
     nfsdp = 1 if mesh is None else _dispatch_mesh(mesh, codec)
+    if mesh is not None:
+        _check_shardable(cfg, mesh)
     device = resolve_device(device)
     if mesh is not None and mesh.device_type != device.type:
         raise ValueError(f"a {mesh.device_type} mesh cannot train on "
                          f"{device}")
     make_opt = default_optimizer if optimizer is None else optimizer
-    if mesh is not None:
-        check_tp(cfg, mesh_axis_size(mesh, "tp"), mesh_axis_size(mesh, "sp"))
     if nfsdp > 1:
         return _make_fsdp_train_step(cfg, device, make_opt, mesh,
                                      compression, codec)
-    group = None if mesh is None else replica_group(mesh)
+    if mesh is not None:
+        prepare_groups(mesh)
+    group = None if mesh is None else replica_group(mesh, "expert")
+    by_kind = mesh is not None and mesh_axis_size(mesh, "ep") > 1
     use_ef = needs_error_feedback(compression)
 
     def init_state(generator: Optional[torch.Generator] = None, *,
@@ -701,12 +824,12 @@ def make_train_step(cfg: TransformerConfig, device=None, optimizer=None, *,
             params = map_params(lambda p: p.requires_grad_(True),
                                 shard_params(params, cfg, mesh))
         opt = make_opt(param_leaves(params))
-        if mesh is not None:
+        if mesh is not None and not by_kind:
             opt = DistributedOptimizer(opt, group=group,
                                        compression=compression)
         state = {"params": params, "opt": opt, "step": 0}
         if use_ef:
-            state["ef"] = params_from_leaves(opt.ef)
+            state["ef"] = params_from_leaves(opt.ef, params)
         return state
 
     def step(state, batch):
@@ -714,16 +837,50 @@ def make_train_step(cfg: TransformerConfig, device=None, optimizer=None, *,
         opt.zero_grad(set_to_none=True)
         loss = lm_loss(state["params"], batch, cfg, mesh)
         loss.backward()
+        if by_kind:
+            reduce_gradients(state["params"], mesh)
         opt.step()
         state["step"] += 1
         if use_ef:
-            state["ef"] = params_from_leaves(opt.ef)
+            state["ef"] = params_from_leaves(opt.ef, state["params"])
         loss = loss.detach()
         if mesh is not None:
             loss = collectives.allreduce(loss, Average, group)
         return state, loss
 
     return init_state, step
+
+
+def reduce_gradients(params, mesh) -> None:
+    """Reduce the ``.grad`` of every leaf of this rank's ``params`` over
+    the ranks that hold the same shard of it
+    (:func:`~horovod_tpu_torch.parallel.mesh.replica_group` of its
+    :func:`leaf_kind`), one grouped all-reduce a kind: an expert leaf
+    over dp, another layer leaf over dp x ep (whose ranks computed it
+    alike), embed/final_norm/lm_head over dp x pp x ep. Those are used
+    by one stage only (embed by the first, the head by the last), so
+    over pp the other stages add zeros: a Sum, scaled by ``pp / size``,
+    which is the Average over the other axes. A leaf no gradient
+    reached counts as zeros. The reduced values are equal on every rank
+    of the group."""
+    pp = mesh_axis_size(mesh, "pp")
+    kinds = {}
+    for name, p in named_param_leaves(params):
+        kinds.setdefault(leaf_kind(name), []).append(p)
+    for kind, ps in kinds.items():
+        group = replica_group(mesh, kind)
+        n = collectives.axis_size(group)
+        if n == 1:
+            continue
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in ps]
+        if kind == "top" and pp > 1:
+            red = collectives.grouped_allreduce(grads, Sum, group,
+                                                postscale_factor=pp / n)
+        else:
+            red = collectives.grouped_allreduce(grads, Average, group)
+        for p, g in zip(ps, red):
+            p.grad = g
 
 
 def _adopt(cfg, device, generator, params):
@@ -793,16 +950,15 @@ def _make_fsdp_train_step(cfg: TransformerConfig, device, make_opt, mesh,
         broadcast_parameters(params, 0, None)
         shards = [p.requires_grad_(True) for p in
                   param_leaves(shard_params(params, cfg, mesh))]
-        state = {"params": params_from_leaves(shards),
+        state = {"params": params_from_leaves(shards, params),
                  "opt": make_opt(shards), "step": 0}
         if use_ef:
-            ef = {"fsdp": params_from_leaves(
-                [torch.zeros_like(p, dtype=torch.float32)
-                 for p in param_leaves(params)])}
+            ef = {"fsdp": map_params(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
             if dp_hop:
-                ef["dp"] = params_from_leaves(
-                    [torch.zeros_like(s, dtype=torch.float32)
-                     for s in shards])
+                ef["dp"] = map_params(
+                    lambda s: torch.zeros_like(s, dtype=torch.float32),
+                    state["params"])
             state["ef"] = ef
         return state
 
@@ -811,7 +967,8 @@ def _make_fsdp_train_step(cfg: TransformerConfig, device, make_opt, mesh,
         full = [(s.detach() if d is None else collectives.allgather(
             s.detach(), fg, axis=d)).requires_grad_(True)
             for s, d in zip(shards, dim_leaves)]
-        loss = lm_loss(params_from_leaves(full), batch, cfg, view)
+        loss = lm_loss(params_from_leaves(full, state["params"]), batch,
+                       cfg, view)
         grads = torch.autograd.grad(loss, full)
         ef = state.get("ef", {})
         rs_res = (param_leaves(ef["fsdp"]) if use_ef
@@ -841,9 +998,11 @@ def _make_fsdp_train_step(cfg: TransformerConfig, device, make_opt, mesh,
         state["opt"].zero_grad(set_to_none=True)
         state["step"] += 1
         if use_ef:
-            state["ef"] = {"fsdp": params_from_leaves(new_rs)}
+            state["ef"] = {"fsdp": params_from_leaves(new_rs,
+                                                      state["params"])}
             if dp_hop:
-                state["ef"]["dp"] = params_from_leaves(new_dp)
+                state["ef"]["dp"] = params_from_leaves(new_dp,
+                                                       state["params"])
         loss = loss.detach()
         for g in (dpg, fg):
             if g is not None:
@@ -854,37 +1013,35 @@ def _make_fsdp_train_step(cfg: TransformerConfig, device, make_opt, mesh,
 
 
 def gather_params(state, cfg: TransformerConfig, mesh) -> Dict[str, Any]:
-    """The full parameters of a train step's ``state``: the shards
-    all-gathered over the mesh's fsdp group, then over its tp group (the
-    tree itself where the mesh shards nothing)."""
+    """The full parameters of a train step's ``state``: every leaf's
+    shards all-gathered along the dim each axis splits
+    (:func:`shard_dims`), over the fsdp, tp, ep and pp groups in turn
+    (the tree itself where the mesh shards nothing)."""
     params = state["params"]
     if mesh is None:
         return params
-    tp = mesh_axis_size(mesh, "tp")
-    for group, dims in (
-            (data_groups(mesh)[1], map_params(_fsdp_spec_dim,
-                                              param_specs(cfg))),
-            (tp_group(mesh), tp_shard_dims(cfg, tp))):
-        if group is not None:
-            params = params_from_leaves(
-                s.detach() if d is None else collectives.allgather(
-                    s.detach(), group, axis=d)
-                for s, d in zip(param_leaves(params), param_leaves(dims)))
-    return params
+    groups = {"fsdp": data_groups(mesh)[1], "tp": tp_group(mesh),
+              "ep": ep_group(mesh), "pp": pp_group(mesh)}
+    out = []
+    for p, dims in zip(param_leaves(params),
+                       param_leaves(shard_dims(cfg, mesh))):
+        p = p.detach()
+        for axis, d in dims:
+            p = collectives.allgather(p, groups[axis], axis=d)
+        out.append(p)
+    return params_from_leaves(out, params)
 
 
 def shard_batch(tokens, mesh):
     """This rank's block of a global ``[B, T+1]`` token batch on
-    ``mesh``: the rank at ``(d, f, s, t)`` takes row block ``d * fsdp +
-    f`` of ``dp * fsdp`` equal blocks, as the reference shards the batch
-    over ``("dp", "fsdp")``, and, with sp > 1, sequence chunk ``s`` of
-    ``sp`` (columns ``[s·T/sp, (s+1)·T/sp]``: the chunk and the token
-    after it, so :func:`lm_loss`'s shift gives the chunk's inputs and
-    targets); every tp rank takes the same block. ``B`` must divide by
-    ``dp * fsdp`` and ``T`` by ``sp``."""
-    bad = unported_axes(mesh)
-    if bad:
-        raise NotImplementedError(f"mesh axes {bad}: {SHARDING_TODO}")
+    ``mesh``: the rank at ``(d, f, p, s, t, e)`` takes row block ``d *
+    fsdp + f`` of ``dp * fsdp`` equal blocks, as the reference shards
+    the batch over ``("dp", "fsdp")``, and, with sp > 1, sequence chunk
+    ``s`` of ``sp`` (columns ``[s·T/sp, (s+1)·T/sp]``: the chunk and
+    the token after it, so :func:`lm_loss`'s shift gives the chunk's
+    inputs and targets); every pp, tp and ep rank takes the same block.
+    ``B`` must divide by ``dp * fsdp`` and ``T`` by ``sp``."""
+    check_ported(mesh)
     nf, nsp = mesh_axis_size(mesh, "fsdp"), mesh_axis_size(mesh, "sp")
     n = nf * mesh_axis_size(mesh, "dp")
     r = axis_index(mesh, "dp") * nf + axis_index(mesh, "fsdp")

@@ -441,23 +441,31 @@ class _QuantizedAlltoall(torch.autograd.Function):
     forward's rounding never enters the backward)."""
 
     @staticmethod
-    def forward(ctx, x, group, codec, bwd_codec):
-        ctx.group, ctx.bwd_codec = group, bwd_codec
-        return _alltoall_value(x, group, codec)
+    def forward(ctx, x, group, codec, bwd_codec, issue):
+        ctx.group, ctx.bwd_codec, ctx.issue = group, bwd_codec, issue
+        return issue(x, lambda: _alltoall_value(x, group, codec))
 
     @staticmethod
     def backward(ctx, g):
-        return _alltoall_value(g, ctx.group, ctx.bwd_codec), None, None, None
+        return (ctx.issue(g, lambda: _alltoall_value(g, ctx.group,
+                                                     ctx.bwd_codec)),
+                None, None, None, None)
+
+
+def _run(x, fn):
+    return fn()
 
 
 def quantized_alltoall(x, group=None, *, codec: str,
-                       bwd_codec: Optional[str] = None):
+                       bwd_codec: Optional[str] = None, issue=None):
     """Alltoall ``x`` over ``group`` with the wire narrowed by ``codec``
     (the MoE dispatch/combine hop). ``x``'s leading dim must equal the
     group size; slab ``x[d]`` goes to rank ``d`` and the result's slab
     ``[s]`` came from rank ``s``. Differentiable: the backward ships the
     cotangent the reverse way with ``bwd_codec`` (default ``codec``).
-    ``"none"`` both ways is the exact alltoall."""
+    ``"none"`` both ways is the exact alltoall. ``issue(payload, fn)``,
+    where given, runs each exchange ``fn()`` (forward and backward), so
+    a caller can count and time them."""
     _check_codec(codec)
     bwd = codec if bwd_codec is None else bwd_codec
     _check_codec(bwd)
@@ -469,7 +477,7 @@ def quantized_alltoall(x, group=None, *, codec: str,
                 f"quantized_alltoall: leading dim {x.shape[0]} must equal "
                 f"the group size {p} (one slab per peer)")
         _check_float(x, "activations")
-    return _QuantizedAlltoall.apply(x, group, codec, bwd)
+    return _QuantizedAlltoall.apply(x, group, codec, bwd, issue or _run)
 
 
 def alltoall_wire_bytes(shape, codec: str, *, elem_bytes: int = 4) -> int:

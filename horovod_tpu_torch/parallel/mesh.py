@@ -5,25 +5,30 @@ The reference names the axes of a ``jax.sharding.Mesh`` over the device
 grid; here each process drives one card and the mesh is a
 :class:`torch.distributed.device_mesh.DeviceMesh` over the processes of
 the world, over the reference's axis order ``(dp, fsdp, pp, sp, tp,
-ep)``, row-major: the rank at ``(d, f, s, t)`` is ``((d * fsdp + f) *
-sp + s) * tp + t``, so tp is innermost, as the reference lays it out.
-dp, fsdp, sp and tp are ported; pp and ep must be 1 (ROADMAP Queue 1
-items 12 and 11). Axes of size 1 other than dp are left out of the
-``DeviceMesh`` (torch makes a process group for each of its dims);
-:func:`mesh_axis_size` reads an absent axis as 1, as the reference's
-size-1 axes are read.
+ep)``, row-major: the rank at ``(d, f, p, s, t, e)`` is ``((((d * fsdp
++ f) * pp + p) * sp + s) * tp + t) * ep + e``, so ep is innermost, then
+tp, as the reference lays them out. Axes of size 1 other than dp are
+left out of the ``DeviceMesh`` (torch makes a process group for each of
+its dims); :func:`mesh_axis_size` reads an absent axis as 1, as the
+reference's size-1 axes are read.
 
     device = init_process_group()      # nccl on cuda:<local_rank>
     mesh = build_mesh(dp=-1)           # or build_mesh(dp=2, sp=2, tp=2)
 
-Groups: :func:`tp_group` and :func:`sp_group` carry the model's own
-collectives; :func:`replica_group` is the group the gradients are
-Averaged over (the ranks that hold the same parameter shards).
+Every axis is built. The train steps take pp with dp and tp, and ep
+with dp, tp and pp; :func:`check_ported` raises for the compositions
+of pp and ep with sp and fsdp (:data:`SHARDING_TODO`).
+
+Groups: :func:`tp_group`, :func:`sp_group`, :func:`pp_group` and
+:func:`ep_group` carry the model's own collectives; :func:`replica_group`
+is the group a leaf's gradient is reduced over (the ranks that hold the
+same shard of it), by the leaf's kind.
 """
 
 from __future__ import annotations
 
 import datetime
+import math
 import os
 from typing import Optional
 
@@ -35,8 +40,13 @@ from horovod_tpu_torch.common.topology import (Topology, card_index,
                                                topology_from_env)
 from horovod_tpu_torch.device import resolve_device
 
-SHARDING_TODO = ("the dp, fsdp, sp and tp axes are ported; ep (MoE) is "
-                 "ROADMAP Queue 1 item 11, pp (the pipeline) item 12")
+SHARDING_TODO = ("pp and ep do not compose with sp or fsdp yet (ROADMAP "
+                 "Queue 1 item 16, the sp and fsdp compositions of pp "
+                 "and ep)")
+
+#: Compositions the train steps do not take yet (item 16).
+UNPORTED_PAIRS = (("pp", "sp"), ("pp", "fsdp"), ("ep", "fsdp"),
+                  ("ep", "sp"))
 
 AXES = ("dp", "fsdp", "pp", "sp", "tp", "ep")
 
@@ -99,32 +109,28 @@ def init_process_group(device=None, *, init_method: Optional[str] = None,
 def build_mesh(*, dp: int = -1, fsdp: int = 1, pp: int = 1, sp: int = 1,
                tp: int = 1, ep: int = 1) -> DeviceMesh:
     """A ``DeviceMesh`` over the world with dims ``"dp"`` and those of
-    ``"fsdp"``, ``"sp"`` and ``"tp"`` above 1, in that order.
-    ``dp=-1`` takes every process the other axes leave; ``dp * fsdp *
-    sp * tp`` must be the world size. pp/ep > 1 raise until their
-    slices are ported."""
-    others = {"pp": pp, "ep": ep}
-    bad = {a: s for a, s in others.items() if s != 1}
-    if bad:
-        raise NotImplementedError(f"build_mesh{bad}: {SHARDING_TODO}")
+    ``"fsdp"``, ``"pp"``, ``"sp"``, ``"tp"`` and ``"ep"`` above 1, in
+    that order. ``dp=-1`` takes every process the other axes leave;
+    ``dp * fsdp * pp * sp * tp * ep`` must be the world size."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs the world: call "
                            "init_process_group() first")
     n = dist.get_world_size()
-    model = {"fsdp": fsdp, "sp": sp, "tp": tp}
+    model = {"fsdp": fsdp, "pp": pp, "sp": sp, "tp": tp, "ep": ep}
     for a, size in model.items():
         if size < 1 or n % size:
             raise ValueError(f"mesh {a}={size} does not divide the world "
                              f"of {n}")
-    inner = fsdp * sp * tp
+    inner = math.prod(model.values())
     if dp == -1:
         if n % inner:
-            raise ValueError(f"mesh fsdp x sp x tp = {inner} does not "
-                             f"divide the world of {n}")
+            raise ValueError(f"mesh fsdp x pp x sp x tp x ep = {inner} does "
+                             f"not divide the world of {n}")
         dp = n // inner
     elif dp * inner != n:
-        raise ValueError(f"mesh dp={dp} x fsdp={fsdp} x sp={sp} x tp={tp} "
-                         f"needs {dp * inner} processes; the world has {n}")
+        sizes = " x ".join(f"{a}={v}" for a, v in {"dp": dp, **model}.items())
+        raise ValueError(f"mesh {sizes} needs {dp * inner} processes; the "
+                         f"world has {n}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     names = ("dp",) + tuple(a for a, size in model.items() if size > 1)
     shape = (dp,) + tuple(size for size in model.values() if size > 1)
@@ -143,11 +149,20 @@ def mesh_axis_size(mesh: DeviceMesh, name: str) -> int:
     return mesh.size(names.index(name)) if name in names else 1
 
 
-def unported_axes(mesh: DeviceMesh) -> dict:
-    """The axes of ``mesh`` that are not ported (pp, ep) with size > 1."""
-    names = tuple(mesh.mesh_dim_names or ())
-    return {a: mesh.size(i) for i, a in enumerate(names)
-            if a in ("pp", "ep") and mesh.size(i) != 1}
+def unported_pairs(mesh: DeviceMesh) -> list:
+    """The compositions of ``mesh`` the train steps do not take yet
+    (:data:`UNPORTED_PAIRS` with both axes above 1)."""
+    return [(a, b) for a, b in UNPORTED_PAIRS
+            if mesh_axis_size(mesh, a) > 1 and mesh_axis_size(mesh, b) > 1]
+
+
+def check_ported(mesh: DeviceMesh) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP item 16 where
+    ``mesh`` composes pp or ep with sp or fsdp."""
+    bad = unported_pairs(mesh)
+    if bad:
+        sizes = {a: mesh_axis_size(mesh, a) for pair in bad for a in pair}
+        raise NotImplementedError(f"mesh axes {sizes}: {SHARDING_TODO}")
 
 
 def _axis_group(mesh: DeviceMesh, name: str):
@@ -169,18 +184,78 @@ def sp_group(mesh: DeviceMesh):
     return _axis_group(mesh, "sp")
 
 
-def replica_group(mesh: DeviceMesh):
-    """The group the train step Averages gradients over: every rank
-    that holds this rank's parameter shards, i.e. the ranks of this
-    rank's ``(f, t)`` over the dp and sp axes. On a dp-only mesh it is
-    the dp group; with sp alone, the sp group; with both, the mesh's dp
-    and sp dims flattened into one (made on the first call, which every
-    rank makes; the mesh keeps it). (The fsdp step reduces over fsdp
-    and then dp itself.)"""
-    axes = tuple(a for a in ("dp", "sp") if mesh_axis_size(mesh, a) > 1)
-    if len(axes) == 2:
-        return mesh[axes]._flatten("dp_sp").get_group()
-    return mesh.get_group(axes[0] if axes else "dp")
+def pp_group(mesh: DeviceMesh):
+    """The process group of ``mesh``'s pp axis (the stages of one ``(d,
+    f, s, t, e)``, in stage order), or None where the mesh has no pp
+    axis: the pipeline's activations and their gradients hop along it."""
+    return _axis_group(mesh, "pp")
+
+
+def ep_group(mesh: DeviceMesh):
+    """The process group of ``mesh``'s ep axis (the expert shards of one
+    ``(d, f, p, s, t)``, consecutive), or None where the mesh has no ep
+    axis: the MoE layer's expert sums and the island's all-to-alls ride
+    it."""
+    return _axis_group(mesh, "ep")
+
+
+def axes_group(mesh: DeviceMesh, axes):
+    """The process group over the mesh axes ``axes`` (those above 1;
+    ranks in the mesh's row-major order): one axis' own group, or for
+    several, one group per combination of the other axes, made with
+    ``new_group`` by every rank in the same order on the first call
+    and kept on the mesh. With no axis above 1, the dp group (size 1
+    where dp is 1)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = tuple(a for a in AXES if a in axes and a in names
+                 and mesh.size(names.index(a)) > 1)
+    if len(axes) < 2:
+        return mesh.get_group(axes[0] if axes else "dp")
+    cache = mesh.__dict__.setdefault("_horovod_groups", {})
+    if axes not in cache:
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        size = math.prod(mesh.size(i) for i in dims)
+        me = dist.get_rank()
+        for row in mesh.mesh.permute(rest + dims).reshape(-1, size).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                cache[axes] = group
+    return cache[axes]
+
+
+#: The axes each kind of leaf is replicated over (the ranks that hold
+#: the same shard of it): ``"expert"`` — the MoE experts, sharded over
+#: ep and pp; ``"layer"`` — every other per-layer leaf (router
+#: included), sharded over pp; ``"top"`` — embed, final_norm and
+#: lm_head, held by every stage.
+REPLICA_AXES = {"expert": ("dp", "sp"), "layer": ("dp", "sp", "ep"),
+                "top": ("dp", "pp", "sp", "ep")}
+
+
+#: Every set of axes a train step reduces over: the replica groups and
+#: the MoE layer's (its output over tp x ep, the island's routing
+#: statistics over dp x ep).
+GROUP_AXES = tuple(REPLICA_AXES.values()) + (("tp", "ep"), ("dp", "ep"))
+
+
+def prepare_groups(mesh: DeviceMesh) -> None:
+    """Make every group of :data:`GROUP_AXES` now, on every rank in the
+    same order. A group made inside a forward could deadlock a pipeline,
+    whose stages reach a layer at different times while ``new_group``
+    waits for the whole world."""
+    for axes in GROUP_AXES:
+        axes_group(mesh, axes)
+
+
+def replica_group(mesh: DeviceMesh, kind: str = "layer"):
+    """The group of the ranks that hold this rank's shard of a leaf of
+    ``kind`` (:data:`REPLICA_AXES`): the group its gradient is reduced
+    over. On a mesh without pp or ep every kind gives the ranks of this
+    rank's ``(f, t)`` over dp and sp: the dp group on a dp-only mesh,
+    the sp group with sp alone, and both axes' ranks with both. (The
+    fsdp step reduces over fsdp and then this group itself.)"""
+    return axes_group(mesh, REPLICA_AXES[kind])
 
 
 def without_axes(mesh: DeviceMesh, *names: str) -> DeviceMesh:

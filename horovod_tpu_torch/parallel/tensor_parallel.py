@@ -1,7 +1,8 @@
 """Differentiable collectives of the model's own parallelism: the
-tensor-parallel "copy" and "reduce" pair, the sequence ring's rotation
-and the Ulysses all-to-all, each a ``torch.autograd.Function`` over a
-process group.
+tensor-parallel "copy" and "reduce" pair (also over the MoE layer's ep
+and tp x ep groups), the sequence ring's rotation, the Ulysses
+all-to-all, and the MoE island's row split and gather, each a
+``torch.autograd.Function`` over a process group.
 
 The JAX package has no module to mirror. There GSPMD inserts the tp
 psums from the parameters' sharding specs
@@ -21,13 +22,25 @@ and ``lax.all_to_all`` (:251-261) itself. Here each is written out:
   (:func:`~horovod_tpu_torch.ops.collectives.alltoall`); the backward
   swaps ``split_axis`` and ``concat_axis``.
 
+* :func:`split_rows` / :func:`gather_rows` — this rank's block of the
+  leading dim, whose backward all-gathers the gradient; and the
+  all-gather of every rank's block, whose backward keeps this rank's
+  block (the MoE island's rows, split over ep and gathered back);
+* :func:`mean_over` — the Average over a group, whose backward hands
+  each rank ``g`` scaled for the gradient reduction that follows (the
+  MoE routing statistics of the whole batch).
+
 A group of None (the axis is absent: size 1) makes each the identity,
 with no collective.
 
 :data:`counters` counts what they issue, forward and backward, by kind:
 ``tp`` (all-reduces over tp: these and the vocab-parallel loss's),
-``sp_p2p`` (rotations; bytes are what this rank sends) and
-``sp_a2a`` (all-to-alls; bytes are the send buffer). With
+``sp_p2p`` (rotations; bytes are what this rank sends),
+``sp_a2a`` (all-to-alls; bytes are the send buffer), ``moe`` (the MoE
+layer's all-reduces and gathers over ep, tp x ep or dp), ``moe_a2a``
+(the island's dispatch and combine all-to-alls; bytes are the payload
+before the codec) and ``pp_p2p`` (the pipeline's hops; bytes are what
+this rank sends). With
 ``reset_counters(timing=True)`` on CUDA each collective is also
 bracketed by CUDA events on the current stream, and
 :func:`collective_ms` sums their times by kind.
@@ -37,10 +50,10 @@ from __future__ import annotations
 
 import torch
 
-from horovod_tpu_torch.common.ops_enum import ReduceOp, Sum
+from horovod_tpu_torch.common.ops_enum import Average, ReduceOp, Sum
 from horovod_tpu_torch.ops import collectives
 
-KINDS = ("tp", "sp_p2p", "sp_a2a")
+KINDS = ("tp", "sp_p2p", "sp_a2a", "moe", "moe_a2a", "pp_p2p")
 
 #: ``{kind: {"calls": n, "bytes": b}}`` since the last reset.
 counters = {k: {"calls": 0, "bytes": 0} for k in KINDS}
@@ -70,10 +83,12 @@ def collective_ms(clear: bool = False) -> dict:
     return out
 
 
-def _issue(kind: str, x: torch.Tensor, fn):
-    """Run the collective ``fn()`` on ``x``, counting (and timing) it."""
+def _issue(kind: str, x: torch.Tensor, fn, nbytes=None):
+    """Run the collective ``fn()`` on ``x``, counting (and timing) it;
+    ``nbytes`` (default: ``x``'s) is what it counts as sent."""
     counters[kind]["calls"] += 1
-    counters[kind]["bytes"] += x.numel() * x.element_size()
+    counters[kind]["bytes"] += (x.numel() * x.element_size() if nbytes is None
+                                else nbytes)
     if not (_timing["on"] and x.is_cuda):
         return fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -85,45 +100,114 @@ def _issue(kind: str, x: torch.Tensor, fn):
     return out
 
 
-def tp_allreduce(x: torch.Tensor, group, op: ReduceOp = Sum):
-    """``collectives.allreduce`` over tp, counted as a tp all-reduce;
-    the identity (no copy) where ``group`` is None."""
+def tp_allreduce(x: torch.Tensor, group, op: ReduceOp = Sum,
+                 kind: str = "tp"):
+    """``collectives.allreduce`` over ``group``, counted as a ``kind``
+    all-reduce; the identity (no copy) where ``group`` is None."""
     if group is None:
         return x
-    return _issue("tp", x, lambda: collectives.allreduce(x, op, group))
+    return _issue(kind, x, lambda: collectives.allreduce(x, op, group))
 
 
 class _CopyToTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return tp_allreduce(g.contiguous(), ctx.group), None
+        return (tp_allreduce(g.contiguous(), ctx.group, kind=ctx.kind),
+                None, None)
 
 
 class _ReduceFromTP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return tp_allreduce(x.contiguous(), group)
+    def forward(ctx, x, group, kind):
+        return tp_allreduce(x.contiguous(), group, kind=kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+def copy_to_tp(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
     """Identity forward; the backward Sum-reduces the gradient over the
-    tp ``group`` (Megatron's ``f``)."""
-    return x if group is None else _CopyToTP.apply(x, group)
+    tp ``group`` (Megatron's ``f``), counted as ``kind``."""
+    return x if group is None else _CopyToTP.apply(x, group, kind)
 
 
-def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_from_tp(x: torch.Tensor, group, kind: str = "tp") -> torch.Tensor:
     """Sum over the tp ``group`` forward; identity backward (Megatron's
-    ``g``)."""
-    return x if group is None else _ReduceFromTP.apply(x, group)
+    ``g``), counted as ``kind``."""
+    return x if group is None else _ReduceFromTP.apply(x, group, kind)
+
+
+def _gather0(x, group):
+    return _issue("moe", x, lambda: collectives.allgather(x.contiguous(),
+                                                         group))
+
+
+def _block(x, group):
+    n, r = collectives.axis_size(group), collectives.axis_rank(group)
+    b = x.shape[0] // n
+    return x[r * b:(r + 1) * b]
+
+
+class _SplitRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _block(x, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather0(g, ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather0(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group), None
+
+
+def split_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of ``x``'s leading dim (``x`` equal on every
+    rank of ``group``); the backward all-gathers the blocks' gradients,
+    so every rank gets the whole gradient of ``x``."""
+    return x if group is None else _SplitRows.apply(x, group)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` concatenated on the leading dim, in rank
+    order; the backward keeps this rank's block of the gradient, which
+    every rank holds whole (what comes after is computed alike on every
+    rank of ``group``), and sums nothing."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, scale):
+        ctx.scale = scale
+        return tp_allreduce(x.contiguous(), group, Average, kind="moe")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None, None
+
+
+def mean_over(x: torch.Tensor, group, scale: float = 1.0) -> torch.Tensor:
+    """The Average of ``x`` over ``group``; the backward gives each rank
+    ``g * scale`` (each rank holds the same cotangent ``g`` of the
+    mean): ``1 / n`` where the ranks' gradients are then summed over the
+    group, 1 where they are Averaged over it."""
+    return x if group is None else _MeanOver.apply(x, group, scale)
 
 
 def _permute(x, group, shift):

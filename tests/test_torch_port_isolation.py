@@ -5,9 +5,9 @@ raises instead of falling back to the CPU or the plain version. The
 process world does not come up on gloo when CUDA was asked for, nor
 alone when the launcher says there are more ranks (nor does the eager
 runtime without the port's launcher or a controller address), the
-unported paths (Adasum, ep/pp meshes) raise naming their ROADMAP
-items, and the quantized codecs raise the reference's
-usage errors, a codec on a tp/sp mesh included. The launcher and the elastic modules load
+unported paths (Adasum; pp and ep composed with sp or fsdp) raise naming
+their ROADMAP items, and the quantized codecs raise the reference's
+usage errors, a codec on a tp/sp/pp/ep mesh included. The launcher and the elastic modules load
 no ``cloudpickle`` either. ``chip_smoke.py`` imports none of it."""
 
 import os
@@ -63,6 +63,9 @@ import horovod_tpu_torch.runner.schedulers
 import horovod_tpu_torch.runner.mpi_run
 import horovod_tpu_torch.runner.js_run
 import horovod_tpu_torch.models.resnet
+import horovod_tpu_torch.models.moe
+import horovod_tpu_torch.parallel.pipeline
+import horovod_tpu_torch.parallel.pipeline_1f1b
 import horovod_tpu_torch.metrics
 import chip_smoke
 banned = ("jax", "jaxlib", "optax", "flax", "horovod_tpu", "ml_dtypes",
@@ -218,16 +221,57 @@ def test_unported_collective_paths_raise_naming_their_items():
             with pytest.raises(ValueError, match="no explicit gradient"):
                 ttr.make_train_step(cfg, "cpu", mesh=_Mesh(axis),
                                     compression=codec)
-    # tp and sp are ported (tests/test_torch_tensor_parallel.py); pp and
-    # ep are not.
-    for axis, item in (("pp", "item 12"), ("ep", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            ttr.make_train_step(cfg, "cpu", mesh=_Mesh(axis))
-        with pytest.raises(NotImplementedError, match=item):
-            build_mesh(**{axis: 2})
-    for axes in ({"fsdp": 2}, {"tp": 2}, {"sp": 2}):
+    # tp, sp, ep and pp are ported (tests/test_torch_tensor_parallel.py,
+    # test_torch_moe.py, test_torch_pipeline.py); a pp mesh trains
+    # through the pipeline's own steps.
+    with pytest.raises(ValueError, match="make_pp_train_step"):
+        ttr.make_train_step(cfg, "cpu", mesh=_Mesh("pp"))
+    for axes in ({"fsdp": 2}, {"tp": 2}, {"sp": 2}, {"pp": 2}, {"ep": 2}):
         with pytest.raises(RuntimeError, match="init_process_group"):
             build_mesh(**axes)
+
+
+class _Mesh2:
+    """Stands in for a ``DeviceMesh`` with dims dp=1 and ``axes``."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names = ("dp",) + tuple(axes)
+        self._sizes = (1,) + tuple(axes.values())
+
+    def size(self, dim):
+        return self._sizes[dim]
+
+
+def test_pp_and_ep_with_sp_or_fsdp_raise_naming_item_16():
+    """The compositions left to ROADMAP item 16 raise before any
+    traffic; pp + sp + MoE raises the reference's own error first."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import transformer as ttr
+    from horovod_tpu_torch.parallel import pipeline as tpl
+
+    cfg = ttr.TransformerConfig.tiny(dtype=torch.float32)
+    moe = dataclasses.replace(cfg, n_experts=4)
+    for axes in ({"pp": 2, "sp": 2}, {"fsdp": 2, "pp": 2},
+                 {"fsdp": 2, "ep": 2}, {"sp": 2, "ep": 2}):
+        mesh = _Mesh2(**axes)
+        with pytest.raises(NotImplementedError, match="item 16"):
+            ttr.make_train_step(cfg, "cpu", mesh=mesh)
+        with pytest.raises(NotImplementedError, match="item 16"):
+            ttr.shard_batch(torch.zeros((4, 9), dtype=torch.long), mesh)
+        if "pp" in axes:
+            with pytest.raises(NotImplementedError, match="item 16"):
+                tpl.make_pp_train_step(cfg, mesh, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="pp \\+ sp \\+ MoE"):
+        tpl.make_pp_train_step(moe, _Mesh2(pp=2, sp=2), 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="pp \\+ sp \\+ MoE"):
+        tpl.make_pp_train_step_1f1b(moe, _Mesh2(pp=2, sp=2), 2,
+                                    device="cpu")
+    for axes in ({"sp": 2}, {"fsdp": 2}):
+        with pytest.raises(NotImplementedError, match="MoE.*item 16"):
+            ttr.make_train_step(moe, "cpu", mesh=_Mesh2(**axes))
+    with pytest.raises(ValueError, match="pp > 1"):
+        tpl.make_pp_train_step(cfg, _Mesh2(tp=2), 2, device="cpu")
 
 
 def test_cast_codecs_cast_only_wide_floats():

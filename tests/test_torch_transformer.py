@@ -149,9 +149,13 @@ def test_unported_paths_raise():
     # a split sequence.
     with pytest.raises(NotImplementedError, match="sp=2"):
         make_sp_attention(_SpMesh(), impl="local")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttr.init_params(dataclasses.replace(cfg_t, n_experts=4),
-                        torch.Generator(), device="cpu")
+    # Item 11 is ported: an MoE config draws the reference's layout.
+    moe = ttr.init_params(dataclasses.replace(cfg_t, n_experts=4),
+                          torch.Generator(), device="cpu")
+    assert {k: tuple(v.shape) for k, v in moe["layers"]["moe"].items()} == {
+        "router": (2, 64, 4), "w_gate": (2, 4, 64, 128),
+        "w_up": (2, 4, 64, 128), "w_down": (2, 4, 128, 64)}
+    assert moe["layers"]["moe"]["router"].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="ring_flash"):
         make_sp_attention(_SpMesh(), impl="flash")
     with pytest.raises(ValueError, match="unknown"):
