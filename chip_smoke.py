@@ -103,11 +103,35 @@ exits non-zero with no result line:
    every loss finite, falling, and within 1e-2 of the same steps through
    plain ``"local"`` attention.
 
+14. Serving (``phase_serve``): Llama-3-8B at full depth (32 layers,
+   bf16, 16.06 GB of weights from the seed), one model shared by every
+   engine (``ServeEngine``: max batch 8, prompts up to 512 tokens, 64
+   new, 16-token KV blocks). ``make_trace`` (16 requests, prompts of
+   64-512 tokens, 16-64 new) through continuous, static and chunked
+   (``prefill_chunk`` 128) engines, then ``make_shared_prefix_trace``
+   (a 256-token system prompt) with the prefix cache on and off; then a
+   2-layer draft and an 8-layer target at the same widths
+   (``make_draft_target_params``) through a plain and a speculative
+   (``spec_k`` 4) engine on the first trace. Flash launches are zeroed
+   just before each group of engines runs and read just after, per
+   program (``count_program_launches``). Holds: the kernel launched
+   n_layers times per monolithic prefill and in no other program; every
+   stream passes the teacher-forced check (one full-context ``forward``
+   a request: at each generated position the stream's token is the
+   argmax, or its logit lies within ``teacher_gap_tol`` of the largest);
+   the cache-on run hits; the pair's accept rate is at least
+   ``SPEC_ACCEPT_FLOOR``; every pool's ``data_ptr`` is unchanged. It
+   prints tokens/s with first-token and per-token p50/p99 per engine,
+   the decode step at full batch against its weight-read floor, the
+   monolithic prefill's ms per bucket and peak memory.
+
 Phase 3 also checks and times a ring chunk of phase 12 (B=1, T=2048,
 32 heads, q_per_kv 1, bf16 in, f32 out; an earlier chunk and the own,
-causal) and every other shape at which phase 12's and phase 13's
+causal), every other shape at which phase 12's and phase 13's
 multi-card runs launch the kernel on a rank (``plan_kernel_cases``; a
-pipeline microbatch of one row among them).
+pipeline microbatch of one row among them), and phase 14's monolithic
+prefill at every prefill bucket (``serve_kernel_cases``: B=1, T 16-512,
+32/8 heads, causal).
 Phase 7 also runs the bench's compression arms
 (``bench.run_compression``). The last lines are the kernels' JSON, the
 card's ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``. It
@@ -190,6 +214,10 @@ from horovod_tpu_torch.parallel import tensor_parallel as ttp
 from horovod_tpu_torch.parallel.mesh import (data_parallel_mesh,
                                              init_process_group)
 from horovod_tpu_torch.runtime import get_runtime
+from horovod_tpu_torch.serve import bench as sbench
+from horovod_tpu_torch.serve import engine as sengine
+from horovod_tpu_torch.serve.speculative import (DraftConfig,
+                                                 make_draft_target_params)
 
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12   # HBM3
@@ -309,14 +337,31 @@ def plan_kernel_cases(cfg, plans):
     return out
 
 
+def serve_buckets(block_size, max_prompt):
+    """The engine's prefill bucket menu (``ServeEngine``'s default)."""
+    return sengine._pow2_menu(block_size,
+                              -(-max_prompt // block_size) * block_size)
+
+
+def serve_kernel_cases(cfg, dims=None):
+    """The kernel's shapes in phase 14: one monolithic prefill of one
+    request at every prefill bucket, causal, with the config's heads."""
+    dims = SERVE_DIMS if dims is None else dims
+    dt = str(cfg.dtype).removeprefix("torch.")
+    return [(f"serve_prefill_t{t}", 1, t, cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, dt, True, None)
+            for t in serve_buckets(dims["block_size"], dims["max_prompt"])]
+
+
 def kernel_cases(cfg):
     """:data:`KERNEL_CASES` and every per-rank shape of phase 12's and
-    phase 13's plans (on two and four cards) that they do not already
-    hold."""
+    phase 13's plans (on two and four cards) and of phase 14's prefill
+    buckets that they do not already hold."""
     seen = {case[1:] for case in KERNEL_CASES}
     extra = []
     for case in plan_kernel_cases(cfg, TP_PLANS + TP_PLANS_2 + MOE_PP_PLANS
-                                  + MOE_PP_PLANS_2):
+                                  + MOE_PP_PLANS_2) + serve_kernel_cases(
+                                      cfg):
         if case[1:] not in seen:
             seen.add(case[1:])
             extra.append(case)
@@ -2815,6 +2860,317 @@ def run_phase13(cfg, seed, cards):
              nprocs=cards, join=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the serving engine
+# ---------------------------------------------------------------------------
+
+#: Phase 14's engines and traces: ``ServeEngine`` limits (max batch 8,
+#: prompts up to 512 tokens, 64 new, 16-token KV blocks), the mixed trace
+#: (``make_trace``: 16 requests, prompts of 64-512 tokens, 16-64 new),
+#: the chunked engine's ``prefill_chunk``, the shared-prefix trace's
+#: system prompt, and the speculative pair (a 2-layer draft and an
+#: 8-layer target at the config's widths, ``spec_k`` 4).
+SERVE_DIMS = dict(n_requests=16, min_prompt=64, max_prompt=512, min_new=16,
+                  max_new=64, max_batch=8, block_size=16, chunk=128,
+                  prefix_len=256, prefix_requests=32, draft_layers=2,
+                  target_layers=8, spec_k=4)
+#: The constructed pair agrees at every position; the draft proposes
+#: through ``decode`` and the target checks through ``verify``, whose
+#: bf16 products differ in shape, so a near-tie may still flip.
+SPEC_ACCEPT_FLOOR = 0.9
+#: An engine's programs, by attribute (a draft's are wrapped apart).
+_SERVE_PROGRAMS = (("_prefill_fn", "prefill"),
+                   ("_resume_fn", "prefill_resume"),
+                   ("_decode_fn", "decode"), ("_verify_fn", "verify"),
+                   ("_inject_fn", "inject"))
+
+
+def count_program_launches(engines):
+    """Wrap the programs of ``engines`` (and of their drafts) so that
+    each call adds to ``tally[name] = [calls, flash launches]``: the
+    flash launches the call itself made. Returns the tally."""
+    tally = {}
+
+    def wrap(obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def counted(*args, **kw):
+            before = tfa.flash_fwd_cuda.launches
+            out = fn(*args, **kw)
+            t = tally.setdefault(name, [0, 0])
+            t[0] += 1
+            t[1] += tfa.flash_fwd_cuda.launches - before
+            return out
+
+        setattr(obj, attr, counted)
+
+    for eng in engines:
+        for attr, name in _SERVE_PROGRAMS:
+            wrap(eng, attr, name)
+        if eng._spec is not None:
+            wrap(eng._spec, "_resume_fn", "draft_prefill_resume")
+            wrap(eng._spec, "_decode_fn", "draft_decode")
+    return tally
+
+
+def launches_ok(tally, n_layers, cuda=True):
+    """The flash kernel ran ``n_layers`` times in each monolithic prefill
+    and in no other program."""
+    per = n_layers if cuda else 0
+    return all(launches == (calls * per if name == "prefill" else 0)
+               for name, (calls, launches) in tally.items())
+
+
+def teacher_gap_tol(n_layers, logit_absmax):
+    """How far below the full-context forward's largest logit a served
+    token's logit may lie where it is not the argmax. The kernel's own
+    bound (``kernel_tolerance``) on a bf16 attention output is one bf16
+    ulp, 2^-7 relative (plus 2^-9 · max|v|, below that ulp at unit v);
+    each layer's attention differs by up to that between the served
+    path (flash prefill, then paged f32-softmax decode) and the forward
+    (flash throughout), and n_layers such errors of independent sign
+    move the final hidden state, and each logit, by about sqrt(n_layers)
+    of them: 2^-7 · sqrt(n_layers) · max|logit|."""
+    return 2.0 ** -7 * math.sqrt(n_layers) * logit_absmax
+
+
+def teacher_forced(params, cfg, trace, streams):
+    """Hold every served stream to the full-context port ``forward``
+    over prompt + stream (one forward a request, every generated
+    position read from it): at each position the stream's token is the
+    argmax, or its logit lies within :func:`teacher_gap_tol` of the
+    largest. Returns (positions, argmax agreements, worst gap, worst
+    gap / tol, ok)."""
+    n = agree = 0
+    worst, worst_share, ok = 0.0, 0.0, True
+    with torch.no_grad():
+        for (prompt, _), got in zip(trace, streams):
+            dev = params["embed"].device
+            toks = torch.tensor([prompt + got[:-1]], device=dev)
+            logits = ttr.forward(params, toks, cfg)[0, len(prompt) - 1:]
+            logits = logits.float()
+            want = torch.tensor(got, device=dev)
+            gap = logits.max(-1).values - logits.gather(
+                -1, want[:, None])[:, 0]
+            tol = teacher_gap_tol(cfg.n_layers,
+                                  logits.abs().max().item())
+            n += len(got)
+            agree += int((logits.argmax(-1) == want).sum())
+            g = gap.max().item()
+            worst = max(worst, g)
+            worst_share = max(worst_share, g / tol)
+            ok = ok and g <= tol
+    return n, agree, worst, worst_share, ok
+
+
+def _serve_cfg(dims, **kw):
+    return sengine.ServeConfig(
+        max_batch=dims["max_batch"], block_size=dims["block_size"],
+        max_prompt=dims["max_prompt"], max_new_tokens=dims["max_new"], **kw)
+
+
+def _pass_summary(snap):
+    keys = ("tokens_per_sec_wall", "wall_s", "tokens_total",
+            "p50_first_token_ms", "p99_first_token_ms", "p50_per_token_ms",
+            "p99_per_token_ms", "decode_steps", "prefill_steps",
+            "batch_occupancy", "prefix_cache_hit_rate",
+            "spec_accept_rate", "spec_rounds")
+    return {k: snap[k] for k in keys if k in snap}
+
+
+def phase_serve(cfg, seed, device, dims=None):
+    """Phase 14: the serving engine at ``cfg`` (one model shared by
+    every engine): ``make_trace`` through continuous, static and chunked
+    engines, the shared-prefix trace with the prefix cache on and off,
+    and a speculative pair; flash launches zeroed just before the
+    engines run and read just after, per program. Holds: the kernel ran
+    n_layers times per monolithic prefill and in no other program;
+    every stream passes the teacher-forced check; the cache-on run hits;
+    the pair's accept rate is at least ``SPEC_ACCEPT_FLOOR``; every
+    pool's ``data_ptr`` is unchanged (the programs wrote in place).
+    Prints tokens/s, first-token and per-token tails per scheduler, the
+    decode step against its weight-read floor, the prefill ms per
+    bucket, and peak memory. Returns the summary."""
+    dims = SERVE_DIMS if dims is None else dims
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = ttr.init_params(cfg, torch.Generator(device).manual_seed(seed),
+                             device=device)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in ttr.param_leaves(params))
+    if cuda:
+        torch.cuda.synchronize()
+    log(f"  model: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}: {weight_bytes / 1e9:.3f} GB of weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trace = sbench.make_trace(
+        dims["n_requests"], seed=seed, min_prompt=dims["min_prompt"],
+        max_prompt=dims["max_prompt"], min_new=dims["min_new"],
+        max_new=dims["max_new"], vocab=cfg.vocab_size)
+    engines = {
+        "continuous": _serve_cfg(dims, prefix_caching=False),
+        "static": _serve_cfg(dims, prefix_caching=False,
+                             scheduling="static"),
+        "chunked": _serve_cfg(dims, prefix_caching=False,
+                              prefill_chunk=dims["chunk"]),
+        "prefix_on": _serve_cfg(dims, prefix_caching=True),
+        "prefix_off": _serve_cfg(dims, prefix_caching=False)}
+    engines = {k: sengine.ServeEngine(cfg, params, c, device=device)
+               for k, c in engines.items()}
+    pools = {k: (e.cache.k.data_ptr(), e.cache.v.data_ptr())
+             for k, e in engines.items()}
+    # Warm the programs (cuBLAS, the kernel's first launch) on a short
+    # request outside the measured passes.
+    engines["continuous"].generate([trace[0][0][:dims["block_size"]]], 2)
+    tally = count_program_launches(engines.values())
+    tfa.flash_fwd_cuda.launches = 0
+    snaps = {}
+    for name in ("continuous", "static", "chunked"):
+        snaps[name] = sbench._run_trace(engines[name], trace)
+        if name == "continuous":
+            events = list(engines[name].metrics._events)
+    prefix_trace = sbench.make_shared_prefix_trace(
+        dims["prefix_requests"], seed=seed, prefix_len=dims["prefix_len"],
+        max_new=min(8, dims["max_new"]), vocab=cfg.vocab_size)
+    for name in ("prefix_on", "prefix_off"):
+        snaps[name] = sbench._run_trace(engines[name], prefix_trace)
+    launches = tfa.flash_fwd_cuda.launches
+    if cuda:
+        torch.cuda.synchronize()
+    main_tally = {k: list(v) for k, v in tally.items()}
+
+    # The speculative pair: a fresh window over its engines.
+    draft_cfg = dataclasses.replace(cfg, n_layers=dims["draft_layers"])
+    target_cfg, target = make_draft_target_params(
+        draft_cfg, dims["target_layers"], seed=seed, device=device)
+    spec = {"plain": sengine.ServeEngine(target_cfg, target,
+                                         _serve_cfg(dims), device=device),
+            "spec": sengine.ServeEngine(target_cfg, target, _serve_cfg(
+                dims, draft=DraftConfig(draft_cfg, seed=seed),
+                spec_k=dims["spec_k"]), device=device)}
+    pools.update({f"pair_{k}": (e.cache.k.data_ptr(), e.cache.v.data_ptr())
+                  for k, e in spec.items()})
+    pools["pair_draft"] = (spec["spec"]._spec.cache.k.data_ptr(),
+                           spec["spec"]._spec.cache.v.data_ptr())
+    spec["plain"].generate([trace[0][0][:dims["block_size"]]], 2)
+    spec["spec"].generate([trace[0][0][:dims["block_size"]]], 2)
+    spec_tally = count_program_launches(spec.values())
+    tfa.flash_fwd_cuda.launches = 0
+    for name, eng in spec.items():
+        snaps[f"pair_{name}"] = sbench._run_trace(eng, trace)
+    spec_launches = tfa.flash_fwd_cuda.launches
+    if cuda:
+        torch.cuda.synchronize()
+
+    in_place = all(
+        (e.cache.k.data_ptr(), e.cache.v.data_ptr()) == pools[k]
+        for k, e in engines.items()) and all(
+        (e.cache.k.data_ptr(), e.cache.v.data_ptr()) == pools[f"pair_{k}"]
+        for k, e in spec.items()) and (
+        spec["spec"]._spec.cache.k.data_ptr(),
+        spec["spec"]._spec.cache.v.data_ptr()) == pools["pair_draft"]
+
+    # The teacher-forced check of every served stream.
+    checks = {}
+    for name in ("continuous", "static", "chunked"):
+        checks[name] = teacher_forced(params, cfg, trace,
+                                      snaps[name]["_tokens"])
+    for name in ("prefix_on", "prefix_off"):
+        checks[name] = teacher_forced(params, cfg, prefix_trace,
+                                      snaps[name]["_tokens"])
+    for name in ("pair_plain", "pair_spec"):
+        checks[name] = teacher_forced(target, target_cfg, trace,
+                                      snaps[name]["_tokens"])
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+    # Decode steps and monolithic prefills of the continuous pass.
+    buckets = engines["continuous"]._prefill_buckets
+    by_bucket, full_steps = {}, []
+    for e in events:
+        if e["name"] == "serve:prefill" and e["args"]["offset"] == 0:
+            b = sengine.pick_bucket(e["args"]["n_tokens"], buckets)
+            by_bucket.setdefault(b, []).append(e["dur"] / 1e3)
+        if (e["name"] == "serve:decode"
+                and e["args"]["n_active"] == dims["max_batch"]):
+            full_steps.append(e["dur"] / 1e3)
+    floor_ms = weight_bytes / H100_BYTES_PER_S * 1e3
+    cont = snaps["continuous"]
+    step_ms = statistics.median(full_steps) if full_steps else float("nan")
+
+    for name, snap in snaps.items():
+        n, agree, worst, share, ok = checks[name]
+        log(f"  {name}: {snap['tokens_total']} tokens in "
+            f"{snap['wall_s']:.3f} s = {snap['tokens_per_sec_wall']:.1f} "
+            f"tokens/s; first token p50 {snap['p50_first_token_ms']} / p99 "
+            f"{snap['p99_first_token_ms']} ms; per token p50 "
+            f"{snap['p50_per_token_ms']} / p99 {snap['p99_per_token_ms']} "
+            f"ms; {snap['decode_steps'] + snap['spec_rounds']} decode "
+            f"steps or rounds, occupancy {snap['batch_occupancy']}; "
+            f"teacher-forced: {agree}/{n} argmax, worst gap {worst:.4f} "
+            f"({share:.2f} of its tolerance) {'ok' if ok else 'FAIL'}")
+    on, off = snaps["prefix_on"], snaps["prefix_off"]
+    log(f"  prefix cache: hit rate {on['prefix_cache_hit_rate']} "
+        f"({on['prefix_block_hits']} block hits); streams equal to the "
+        f"cache-off run's: {on['_tokens'] == off['_tokens']}")
+    accept = snaps["pair_spec"]["spec_accept_rate"]
+    spec_x = (snaps["pair_spec"]["tokens_per_sec_wall"]
+              / snaps["pair_plain"]["tokens_per_sec_wall"])
+    log(f"  speculative ({dims['draft_layers']}-layer draft, "
+        f"{dims['target_layers']}-layer target, k={dims['spec_k']}): accept "
+        f"rate {accept} (floor {SPEC_ACCEPT_FLOOR}), {spec_x:.3f}x plain "
+        f"decode's tokens/s; streams equal to plain decode's: "
+        f"{snaps['pair_spec']['_tokens'] == snaps['pair_plain']['_tokens']}")
+    log(f"  decode step at batch {dims['max_batch']}: median {step_ms:.3f} ms "
+        f"over {len(full_steps)} steps (min "
+        f"{min(full_steps, default=float('nan')):.3f}) against a "
+        f"{floor_ms:.3f} ms weight-read floor ({weight_bytes} bytes / "
+        f"3.35e12 B/s): {step_ms / floor_ms:.2f}x the floor")
+    log("  monolithic prefill ms by bucket (continuous pass, wall clock "
+        "to the first token): " + ", ".join(
+            f"{b}: {statistics.median(v):.3f} (n={len(v)})"
+            for b, v in sorted(by_bucket.items())))
+    log(f"  flash_fwd launches: {launches} (main model) and {spec_launches} "
+        f"(pair); per program [calls, launches]: {main_tally}, pair "
+        f"{spec_tally}; pools written in place: {in_place}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    summary = {"serve": {
+        "n_layers": cfg.n_layers, "weight_bytes": weight_bytes,
+        "passes": {k: _pass_summary(v) for k, v in snaps.items()},
+        "teacher_forced": {k: list(v) for k, v in checks.items()},
+        "decode_step_ms_median_full_batch": step_ms,
+        "decode_step_floor_ms": floor_ms,
+        "prefill_ms_by_bucket": {b: statistics.median(v)
+                                 for b, v in sorted(by_bucket.items())},
+        "flash_fwd_launches": launches, "pair_flash_fwd_launches":
+            spec_launches, "programs": main_tally,
+        "pair_programs": spec_tally, "peak_mem_bytes": peak}}
+    log(json.dumps(summary))
+    ok = (launches_ok(main_tally, cfg.n_layers, cuda)
+          and launches_ok(spec_tally, target_cfg.n_layers, cuda)
+          and launches == sum(v[1] for v in main_tally.values())
+          and (not cuda or main_tally["prefill"][1] > 0)
+          and all(c[4] for c in checks.values())
+          and snaps["prefix_on"]["prefix_cache_hit_rate"] > 0
+          and snaps["prefix_on"]["prefix_block_hits"] > 0
+          and accept >= SPEC_ACCEPT_FLOOR and in_place)
+    del engines, spec, params, target
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(
+            "phase 14 failed: the flash kernel must launch n_layers times "
+            "per monolithic prefill and in no other program, every stream "
+            "must pass the teacher-forced check, the prefix cache must hit, "
+            f"the pair's accept rate must reach {SPEC_ACCEPT_FLOOR}, and "
+            "the pools must be written in place")
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2951,6 +3307,13 @@ def main(argv=None) -> int:
     phase_moe(moe_config(cfg), args.seed, **MOE_DIMS,
               device=torch.device("cuda"))
     torch.cuda.empty_cache()
+    stamp()
+
+    log("phase 14: serving (Llama-3-8B at full depth, paged KV, "
+        "continuous / static / chunked, prefix cache, speculative)")
+    phase_serve(dataclasses.replace(ttr.TransformerConfig.llama3_8b(),
+                                    sp_attention="flash", remat=False),
+                args.seed, torch.device("cuda"))
     stamp()
 
     torch.cuda.synchronize()

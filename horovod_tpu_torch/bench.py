@@ -54,9 +54,18 @@ GPU, ``moe_dispatch_bytes_saved_pct`` (int8 against f32 slabs on one
 dispatch hop, from ``alltoall_wire_bytes``). Rank 0 prints ``MOEEXTRA
 {json}`` after each round.
 
+Then the serve arm (:func:`run_serve`, the reference's
+``_serve_worker`` without its fleet tiers): Llama-3-8B at full depth
+(``CFG_SERVE``) on every process's own card through
+:mod:`horovod_tpu_torch.serve.bench` — continuous, static and chunked
+scheduling, the tracing tax, the prefix cache and speculative decoding
+(a 2-layer draft, an 8-layer target) — with the reference's ``serve_*``
+keys; rank 0 prints ``SERVEEXTRA {json}`` after each tier.
+
 Its last line is the reference's primary line, ``{"metric":
 "resnet50_images_per_sec_per_chip", "value", "unit": "images/sec",
-"vs_baseline", "extra"}``, with the transformer keys in ``extra``.
+"vs_baseline", "extra"}``, with the transformer and serve keys in
+``extra``.
 """
 
 from __future__ import annotations
@@ -104,6 +113,10 @@ CFG_MOE = TransformerConfig(
     vocab_size=2048, d_model=256, n_layers=1, n_heads=4, n_kv_heads=4,
     d_ff=512, max_seq=128, dtype=torch.bfloat16, sp_attention="local",
     remat=False, n_experts=8, moe_top_k=2, moe_capacity_factor=1.25)
+
+#: The serve arm's model (:func:`run_serve`): Llama-3-8B at its full
+#: depth, as ``chip_smoke.py`` phase 14 serves it.
+CFG_SERVE = TransformerConfig.llama3_8b(sp_attention="flash", remat=False)
 
 #: The reference bench's ResNet-50 baseline, images/s per device (its
 #: ``REF_R50_IMG_PER_SEC_PER_DEVICE``, derived from Horovod's published
@@ -298,6 +311,42 @@ def run_moe(device, cfg: TransformerConfig = CFG_MOE, *, rows_per_gpu: int = 2,
     return out
 
 
+def run_serve(device, cfg: TransformerConfig = CFG_SERVE, *,
+              n_requests: int = 32, spec_requests: int = 24,
+              trace_requests: int = 24, repeats: int = 3,
+              draft_layers: int = 2, target_layers: int = 8,
+              emit=None) -> dict:
+    """The serve arm (the reference's ``_serve_worker`` without its fleet
+    tiers), one engine on ``device`` with ``cfg``: continuous, static
+    and chunked scheduling on the mixed trace
+    (``run_serving_benchmark``), the tracing tax
+    (``run_trace_overhead_benchmark``), the prefix cache on the
+    shared-prompt trace (``run_prefix_benchmark``) and speculative
+    decoding with a ``draft_layers`` / ``target_layers`` pair of
+    ``cfg``'s widths (``run_spec_benchmark``). ``emit(keys)`` is called
+    after each tier. Returns the ``serve_*`` keys and
+    ``flight_dump_ms``."""
+    from horovod_tpu_torch.serve import bench as sbench
+
+    emit = emit or (lambda keys: None)
+    out = sbench.run_serving_benchmark(n_requests, model_cfg=cfg,
+                                       repeats=repeats, device=device)
+    emit(out)
+    out.update(sbench.run_trace_overhead_benchmark(
+        trace_requests, model_cfg=cfg, repeats=max(repeats, 2),
+        device=device))
+    emit(out)
+    out.update(sbench.run_prefix_benchmark(n_requests, model_cfg=cfg,
+                                           repeats=repeats, device=device))
+    emit(out)
+    out.update(sbench.run_spec_benchmark(
+        spec_requests, draft_cfg=dataclasses.replace(cfg,
+                                                     n_layers=draft_layers),
+        target_layers=target_layers, repeats=repeats, device=device))
+    emit(out)
+    return out
+
+
 def run_resnet(mesh, device, cfg: resnet.ResNetConfig = RESNET50, *,
                image_size: int = 224, batch: int = 0, warmup: int = 10,
                rounds: int = 10, iters: int = 10) -> dict:
@@ -361,6 +410,9 @@ def main(argv=None) -> int:
         extra = run(mesh, device)
         extra.update(run_compression(device))
         extra.update(run_moe(device))
+        lead = dist.get_rank() == 0
+        extra.update(run_serve(device, emit=lambda keys: lead and print(
+            "SERVEEXTRA " + json.dumps(keys), flush=True)))
         if dist.get_rank() == 0:
             print(json.dumps(primary_line(r50["images_per_sec_per_gpu"],
                                           extra)), flush=True)

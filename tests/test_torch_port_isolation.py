@@ -7,7 +7,8 @@ alone when the launcher says there are more ranks (nor does the eager
 runtime without the port's launcher or a controller address), the
 unported paths (Adasum; pp and ep composed with sp or fsdp) raise naming
 their ROADMAP items, and the quantized codecs raise the reference's
-usage errors, a codec on a tp/sp/pp/ep mesh included. The launcher and the elastic modules load
+usage errors, a codec on a tp/sp/pp/ep mesh included; serving on a mesh
+raises naming its ROADMAP item (17). The launcher and the elastic modules load
 no ``cloudpickle`` either. ``chip_smoke.py`` imports none of it."""
 
 import os
@@ -67,6 +68,14 @@ import horovod_tpu_torch.models.moe
 import horovod_tpu_torch.parallel.pipeline
 import horovod_tpu_torch.parallel.pipeline_1f1b
 import horovod_tpu_torch.metrics
+import horovod_tpu_torch.serve
+import horovod_tpu_torch.serve.bench
+import horovod_tpu_torch.serve.decode
+import horovod_tpu_torch.serve.engine
+import horovod_tpu_torch.serve.kv_cache
+import horovod_tpu_torch.serve.metrics
+import horovod_tpu_torch.serve.speculative
+import horovod_tpu_torch.serve.trace
 import chip_smoke
 banned = ("jax", "jaxlib", "optax", "flax", "horovod_tpu", "ml_dtypes",
           "cloudpickle")
@@ -83,14 +92,21 @@ def test_import_loads_no_jax_or_reference_package():
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
-    from horovod_tpu_torch import resolve_device
+    from horovod_tpu_torch import resolve_device, serve
     from horovod_tpu_torch.models import resnet
     from horovod_tpu_torch.models import transformer as ttr
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ttr.TransformerConfig.tiny(dtype=torch.float32)
     rcfg = resnet.ResNetConfig((1, 1), 10, 8)
-    for call in (lambda: ttr.make_train_step(cfg),
+    cpu_params = ttr.init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    for call in (lambda: serve.ServeEngine(cfg, cpu_params),
+                 lambda: serve.init_kv_cache(cfg, 4, 8),
+                 lambda: serve.make_serve_fns(cfg, block_size=8,
+                                              table_width=4),
+                 lambda: serve.make_draft_target_params(cfg, 3),
+                 lambda: ttr.make_train_step(cfg),
                  lambda: ttr.make_train_step(cfg, device="cuda"),
                  lambda: ttr.init_params(cfg, torch.Generator()),
                  lambda: ttr.params_from_jax({}),
@@ -104,6 +120,12 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     init_state, _ = ttr.make_train_step(cfg, device="cpu")
     state = init_state(torch.Generator().manual_seed(0))
     assert state["params"]["embed"].device.type == "cpu"
+    eng = serve.ServeEngine(cfg, cpu_params, device="cpu")
+    assert eng.cache.k.device.type == "cpu"
+    # Parameters on another device than the engine's are refused.
+    with pytest.raises(ValueError, match="move the parameters"):
+        serve.ServeEngine(cfg, ttr.map_params(
+            lambda p: p.to("meta"), cpu_params), device="cpu")
 
 
 def test_eager_world_needs_a_launcher_or_an_address(monkeypatch):
@@ -229,6 +251,22 @@ def test_unported_collective_paths_raise_naming_their_items():
     for axes in ({"fsdp": 2}, {"tp": 2}, {"sp": 2}, {"pp": 2}, {"ep": 2}):
         with pytest.raises(RuntimeError, match="init_process_group"):
             build_mesh(**axes)
+
+
+def test_serving_on_a_mesh_raises_naming_item_17():
+    """Serving with tp/ep-sharded params and pool is ROADMAP item 17:
+    the engine and the pool refuse a mesh before allocating anything."""
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.models import transformer as ttr
+
+    cfg = ttr.TransformerConfig.tiny(dtype=torch.float32)
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    for axis in ("tp", "ep"):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            serve.ServeEngine(cfg, params, mesh=_Mesh(axis), device="cpu")
+        with pytest.raises(NotImplementedError, match="item 17"):
+            serve.init_kv_cache(cfg, 4, 8, mesh=_Mesh(axis), device="cpu")
 
 
 class _Mesh2:
