@@ -141,7 +141,11 @@ exits non-zero with no result line:
    building the model from the seed: the affinity fleet against (W1)'s,
    the split fleet with direct and with relayed migration, a SIGKILL to
    one worker mid-trace, and ``export_fleet_trace`` merged by
-   ``trace_merge`` with one request's critical path. Holds: the kernel
+   ``trace_merge`` with one request's critical path; (W4) (W1)'s
+   affinity fleet through ``ServeRouter(mesh=build_mesh(tp=1))`` on a
+   world of this one process, whose streams and placement log must be
+   (W1)'s, bitwise (its flash launches are a path of their own in the
+   kernels' line). Holds: the kernel
    ran n_layers times per monolithic prefill and nowhere else in every
    replica (per program in this process, launches against monolithic
    prefills in a worker); affinity's prefix hit rate above random's;
@@ -194,7 +198,7 @@ Phase 7 also runs the bench's compression arms
 card's ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
 
-``--dp-only`` runs phases 1, 6, 7, 8, 10, 12, 13, 15, 16, 17 and 18 alone, on
+``--dp-only`` runs phases 1, 6, 7, 8, 10, 12, 13, 15, 16, 17, 18 and 19 alone, on
 two or more cards: the multi-card check of the data-parallel path, the
 eager plane and the ResNet arm (world 1 on card 0, then every card; the
 parameter digests must agree on every rank), then, on four or more
@@ -281,8 +285,27 @@ moving pages between cards over direct and over relayed migration
 (bytes and p50 ms of each; streams equal between the two, or held as
 phase 18 holds them), and the split fleet again with a decode worker
 SIGKILLed mid-trace; every request resolved once, every stream
-teacher-forced on card 0 once the fleet is down. ``--dp-only`` prints
-no result line.
+teacher-forced on card 0 once the fleet is down. Last, on four cards,
+phase 19 (``run_phase19``): the fleet on a mesh, one process a card,
+every rank running the same ``ServeRouter(mesh=)`` over its shards of
+the whole parameters (drawn from the seed, broadcast) on phase 18's
+trace, two in-process replicas a fleet (``ROUTER_MESH_PASSES``): (Y1)
+Llama-3-8B at 32 layers on tp=4 with affinity and with random
+placement, (Y2) a split fleet of one prefill and one decode replica on
+tp=4 (each handoff moves the rank's KV heads), the affinity fleet again
+with rank r's clock reading 50·r s ahead and a deadline on every third
+request, (Y3) dp=2 x tp=2 and (Y4) the MoE configuration of phase 17
+on ep=4. Holds on every rank: streams, placement logs and statuses
+equal on every rank; (Y1)'s and (Y2)'s placement logs those of a
+one-card router on the same trace (run first on every card); every
+request resolved once (the skewed pass expiring some, the same on every
+rank, and serving the rest); n_layers flash launches per monolithic
+prefill per replica and none elsewhere; every pool's ``data_ptr``; every
+served stream teacher-forced against the one-card ``forward``; the split
+fleet handing every request off once. It prints tokens/s, the
+first-token and per-token tails, the hit rate, handoffs with their
+bytes per rank and p50 ms, per-rank peak memory and the seconds, beside
+the card's ``nvidia-smi`` line. ``--dp-only`` prints no result line.
 """
 
 import argparse
@@ -4018,28 +4041,38 @@ def _worker_stats(router):
 
 
 def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
-               kill=None, kill_after=3, **rc):
+               kill=None, kill_after=3, mesh=None, clock=time.perf_counter,
+               deadlines=None, **rc):
     """One cold fleet over ``trace``: in-process replicas over ``params``
     (their programs' flash launches tallied per replica), or the worker
     processes ``workers`` (their launches and peak memory read from their
     beats, their monolithic prefills from their trace spans). ``kill``
     (a worker handle) is SIGKILLed after ``kill_after`` router steps.
-    Returns the pass's record; ``_streams`` the token streams in trace
-    order."""
+    With ``mesh`` every rank of it runs this pass alike, ``params`` this
+    rank's shards. ``deadlines`` (seconds after the first submission on
+    the router's clock, or None, a request) makes those requests
+    expirable. Returns the pass's record; ``_streams`` the token streams
+    in trace order, ``_log`` the placement log, ``_status`` the
+    results' statuses."""
     from horovod_tpu_torch.serve.router import RouterConfig, ServeRouter
 
     rc = dict(rc)
     router = ServeRouter(cfg, params, RouterConfig(
         n_replicas=rc.pop("n_replicas", 2), max_queue=len(trace), **rc),
-        sc, workers=workers)
+        sc, workers=workers, mesh=mesh, clock=clock)
     tallies = {}
     if workers is None:
         tallies = {r.instance: count_program_launches([r.engine])
                    for r in router._replicas}
+    pools = [(e.cache.k.data_ptr(), e.cache.v.data_ptr())
+             for e in router.engines if workers is None]
     before = _worker_stats(router)
+    deadlines = deadlines or [None] * len(trace)
     tfa.flash_fwd_cuda.launches = 0
     t0 = time.perf_counter()
-    rids = [router.submit(p, n) for p, n in trace]
+    base = router.now()
+    rids = [router.submit(p, n, deadline=None if d is None else base + d)
+            for (p, n), d in zip(trace, deadlines)]
     steps = 0
     while router.pending:
         router.step()
@@ -4064,6 +4097,7 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
             "monolithic_prefills": mono,
             "peak_mem_bytes": after[r.instance]["peak_mem_bytes"]}
     tokens = sum(len(x.tokens) for x in res if x is not None)
+    statuses = [x.status if x is not None else None for x in res]
     rec = {
         "name": name, "seconds": wall, "steps": steps,
         "tokens": tokens, "tokens_per_sec": tokens / wall,
@@ -4078,10 +4112,17 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
         "p50_migration_ms": snap["p50_migration_ms"],
         "worker_deaths": snap["worker_deaths"],
         "requeued": snap["requeued_total"],
+        "expired": statuses.count("expired"),
         "resolved_once": (len(res) == len(rids)
-                          and all(x is not None and x.status == "ok"
-                                  for x in res)
+                          and all(x is not None and (
+                              x.status == "ok" or (d is not None
+                                                   and x.status == "expired"))
+                                  for x, d in zip(res, deadlines))
                           and len({x.rid for x in res}) == len(rids)),
+        "pools_in_place": pools == [(e.cache.k.data_ptr(),
+                                     e.cache.v.data_ptr())
+                                    for e in router.engines
+                                    if workers is None],
         "programs": {k: {p: list(v) for p, v in t.items()}
                      for k, t in tallies.items()},
         "router_flash_launches": launches,
@@ -4089,6 +4130,8 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
         "router_peak_mem_bytes": (torch.cuda.max_memory_allocated()
                                   if torch.cuda.is_available() else 0),
         "_streams": [x.tokens if x is not None else [] for x in res],
+        "_log": list(router.placement_log),
+        "_status": statuses,
         "_router": router,
     }
     return rec
@@ -4202,8 +4245,9 @@ def phase_fleet(cfg, seed, device, dims=None):
     device, each building the model from ``seed``: the affinity fleet
     against (W1)'s, the split fleet with direct and with relayed
     migration, a SIGKILL mid-trace, and the fleet trace merged with its
-    critical path. Returns the summary and the flash launches of the
-    phase."""
+    critical path; (W4) (W1)'s affinity fleet through
+    ``ServeRouter(mesh=)`` on a world-1 mesh, bitwise (W1)'s. Returns the
+    summary, the flash launches of the phase outside (W4), and (W4)'s."""
     from horovod_tpu_torch.serve import trace_merge
     from horovod_tpu_torch.serve.rpc import spawn_worker
 
@@ -4249,6 +4293,34 @@ def phase_fleet(cfg, seed, device, dims=None):
         w1["prefix_hit_rate"] > passes["W1 random"]["prefix_hit_rate"])
     log(f"  W1: affinity hit rate {w1['prefix_hit_rate']} against random's "
         f"{passes['W1 random']['prefix_hit_rate']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (W4) (W1)'s affinity fleet through ServeRouter(mesh=) on a world of
+    # this one process: the mesh router's code path, whose streams and
+    # placement log must be (W1)'s, bitwise.
+    t0 = time.perf_counter()
+    own_world = not dist.is_initialized()
+    if own_world:
+        init_process_group(device)
+    mesh1 = build_mesh(tp=1)
+    shards = ttr.shard_params(params, cfg, mesh1, serving=True)
+    rec = fleet_pass("W4 mesh affinity", cfg, trace, sc_on, params=shards,
+                     mesh=mesh1, placement="affinity", seed=seed)
+    rec.pop("_router")
+    del shards
+    if own_world:
+        dist.destroy_process_group()
+    passes[rec["name"]] = rec
+    mesh_launches = rec["router_flash_launches"]
+    _log_pass(rec)
+    checks["W4 launches"] = fleet_launches_ok(rec, n_layers, cuda)
+    checks["W4 resolved"] = rec["resolved_once"]
+    checks["W4 pools in place"] = rec["pools_in_place"]
+    checks["W4 streams bitwise W1"] = rec["_streams"] == w1["_streams"]
+    checks["W4 placement log W1"] = rec["_log"] == w1["_log"]
+    log(f"  W4: streams bitwise (W1) affinity's: "
+        f"{checks['W4 streams bitwise W1']}; placement log (W1)'s: "
+        f"{checks['W4 placement log W1']} ({len(rec['_log'])} decisions); "
         f"{time.perf_counter() - t0:.1f} s")
 
     # (W2) the split fleet, cache off, against one cache-off engine.
@@ -4374,7 +4446,7 @@ def phase_fleet(cfg, seed, device, dims=None):
     bad = [k for k, v in checks.items() if not v]
     if bad:
         raise AssertionError(f"phase 18 failed: {bad}")
-    return summary, launches
+    return summary, launches, mesh_launches
 
 
 def phase_fleet_cards(cfg, seed, cards, dims=None, device_kind="cuda"):
@@ -4472,6 +4544,226 @@ def phase_fleet_cards(cfg, seed, cards, dims=None, device_kind="cuda"):
     if bad:
         raise AssertionError(f"phase 18 (X) failed: {bad}")
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the fleet on a mesh (ServeRouter(mesh=), every rank running the
+# router in lockstep)
+# ---------------------------------------------------------------------------
+
+#: Phase 19's passes on four cards, one process a card, each a cold fleet
+#: of two in-process replicas on phase 18's trace: (name, mesh axes,
+#: model, router knobs, prefix cache on, the one-card pass whose
+#: placement log it must equal, skewed clocks). "dense" is Llama-3-8B at
+#: 32 layers, "moe" phase 17's served MoE configuration.
+ROUTER_MESH_PASSES = (
+    ("Y1 affinity", {"tp": 4}, "dense", dict(placement="affinity"), True,
+     "W1 affinity", False),
+    ("Y1 random", {"tp": 4}, "dense", dict(placement="random"), True,
+     "W1 random", False),
+    ("Y2 split", {"tp": 4}, "dense", dict(n_prefill=1), False, "W2 split",
+     False),
+    ("Y1 skewed", {"tp": 4}, "dense", dict(placement="affinity"), True,
+     None, True),
+    ("Y3 affinity", {"dp": 2, "tp": 2}, "dense", dict(placement="affinity"),
+     True, None, False),
+    ("Y4 affinity", {"ep": 4}, "moe", dict(placement="affinity"), True, None,
+     False),
+)
+#: The skewed pass: rank r's clock reads ``perf_counter() + ROUTER_SKEW_S
+#: * r``, and every third request has a deadline, the k-th of them
+#: ``ROUTER_DEADLINE_STEP_S * k`` after the first submission (on rank 0's
+#: clock, which the router broadcasts): the first expires at once.
+ROUTER_SKEW_S = 50.0
+ROUTER_DEADLINE_STEP_S = 0.25
+
+
+def skewed_deadlines(n):
+    return [ROUTER_DEADLINE_STEP_S * (i // 3) if i % 3 == 0 else None
+            for i in range(n)]
+
+
+def router_mesh_pass(name, cfg, trace, sc, full, params, mesh, knobs, seed,
+                     ref_log=None, skew=False):
+    """One pass of phase 19 on this rank: the fleet over ``mesh`` (this
+    rank's ``params`` shards of ``full``), every rank alike. Returns
+    (the pass's record, its checks, each held on every rank): streams,
+    placement log and statuses equal on every rank; the placement log
+    ``ref_log`` (the one-card router's on the same trace), if given;
+    every request resolved once; n_layers flash launches per monolithic
+    prefill per replica and none elsewhere; every pool's ``data_ptr``
+    unchanged; every served stream teacher-forced against the one-card
+    ``forward`` of ``full``; a split fleet handing every request off
+    once; the skewed pass expiring some requests and serving others."""
+    rank = dist.get_rank()
+    device = param_device(params)
+    cuda = device.type == "cuda"
+    clock, deadlines = time.perf_counter, None
+    if skew:
+        def clock():
+            return time.perf_counter() + ROUTER_SKEW_S * rank
+
+        deadlines = skewed_deadlines(len(trace))
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    rec = fleet_pass(name, cfg, trace, sc, params=params, mesh=mesh,
+                     clock=clock, deadlines=deadlines, seed=seed, **knobs)
+    rec.pop("_router")
+    view = (rec["_streams"], rec["_log"], rec["_status"])
+    every = allgather_object(view)
+    served = [i for i, st in enumerate(rec["_status"]) if st == "ok"]
+    teacher = teacher_forced(full, cfg, [trace[i] for i in served],
+                             [rec["_streams"][i] for i in served])
+    rec["teacher_forced"] = list(teacher)
+    launches = sum(t[1] for v in rec["programs"].values()
+                   for t in v.values())
+    checks = {
+        "equal on every rank": all(o == view for o in every),
+        "resolved once": rec["resolved_once"],
+        "launches": (fleet_launches_ok(rec, cfg.n_layers, cuda)
+                     and rec["router_flash_launches"] == launches),
+        "pools in place": rec["pools_in_place"],
+        "teacher-forced": bool(served) and teacher[4],
+    }
+    if ref_log is not None:
+        checks["placement log one card's"] = rec["_log"] == ref_log
+    if knobs.get("n_prefill"):
+        checks["handed off once"] = rec["handoffs"] == len(trace)
+    if skew:
+        checks["some expired, some served"] = (
+            0 < rec["expired"] < len(trace))
+    every_checks = allgather_object(checks)
+    rec["peak_mem_bytes_per_rank"] = allgather_object(
+        rec["router_peak_mem_bytes"])
+    rec["migration_bytes_per_rank"] = allgather_object(
+        rec["migration_bytes"])
+    return rec, {k: all(c[k] for c in every_checks) for k in checks}
+
+
+def param_device(params):
+    return ttr.param_leaves(params)[0].device
+
+
+def router_mesh_world(rank, n, port, seed, device=None, dims=None,
+                      passes=ROUTER_MESH_PASSES, cfgs=None):
+    """Phase 19 as rank ``rank`` of ``n`` (one process a card): each
+    model's whole parameters drawn from the seed and broadcast from rank
+    0; the one-card references (a meshless router over the whole
+    parameters on this rank's card, on the same trace); then each pass of
+    ``passes`` (:func:`router_mesh_pass`) through ``ServeRouter(mesh=)``
+    on this rank's shards, a short round-robin pass first warming each
+    mesh. ``cfgs`` = {"dense": ..., "moe": ...} (default: Llama-3-8B at
+    32 layers and :func:`serve_moe_config` of its 4-layer slice);
+    ``device="cpu"`` with small ones rehearses it on gloo."""
+    from horovod_tpu_torch.binding import broadcast_parameters
+
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    device = init_process_group(device, timeout=TP_TIMEOUT)
+    dims = FLEET_DIMS if dims is None else dims
+    if cfgs is None:
+        dense = dataclasses.replace(ttr.TransformerConfig.llama3_8b(),
+                                    sp_attention="flash", remat=False)
+        cfgs = {"dense": dense, "moe": serve_moe_config(
+            dataclasses.replace(dense, n_layers=4))}
+    cuda = device.type == "cuda"
+    say = log if rank == 0 else (lambda *a: None)
+    card = card_line() if cuda else "cpu"
+    t_phase = time.perf_counter()
+    recs, checks = {}, {}
+    try:
+        for kind in ("dense", "moe"):
+            mine = [p for p in passes if p[2] == kind]
+            if not mine:
+                continue
+            cfg = cfgs[kind]
+            t0 = time.perf_counter()
+            full = ttr.init_params(
+                cfg, torch.Generator(device).manual_seed(seed), device)
+            broadcast_parameters(full, 0, None)
+            trace = fleet_trace(cfg, seed, dims)
+            scs = {True: fleet_serve_cfg(dims, trace),
+                   False: fleet_serve_cfg(dims, trace, prefix_caching=False)}
+            refs = {}
+            for _, _, _, knobs, cache, ref, _ in mine:
+                if ref is not None and ref not in refs:
+                    rec = fleet_pass(ref, cfg, trace, scs[cache],
+                                     params=full, seed=seed, **knobs)
+                    rec.pop("_router")
+                    refs[ref] = rec["_log"]
+            say(f"  {kind}: parameters and one-card references "
+                f"({sorted(refs)}) in {time.perf_counter() - t0:.1f} s")
+            at = None
+            for name, axes, _, knobs, cache, ref, skew in mine:
+                if axes != at:
+                    params = None
+                    gc.collect()
+                    mesh = build_mesh(**axes)
+                    params = ttr.shard_params(full, cfg, mesh, serving=True)
+                    warm = fleet_pass(f"warm-up {axes}", cfg, trace[:4],
+                                      scs[True], params=params, mesh=mesh,
+                                      placement="round_robin", seed=seed)
+                    warm.pop("_router")
+                    checks[f"warm-up {axes} resolved"] = warm["resolved_once"]
+                    at = axes
+                t1 = time.perf_counter()
+                rec, c = router_mesh_pass(
+                    name, cfg, trace, scs[cache], full, params, mesh, knobs,
+                    seed, ref_log=refs.get(ref), skew=skew)
+                rec["axes"] = axes
+                recs[name] = rec
+                for k, v in c.items():
+                    checks[f"{name} {k}"] = v
+                mib = 2 ** 30
+                n_t, agree, worst, share, _ = rec["teacher_forced"]
+                say(f"  ({name}) {axes} {kind}: {rec['tokens']} tokens in "
+                    f"{rec['seconds']:.3f} s = {rec['tokens_per_sec']:.1f} "
+                    f"tokens/s; first token p50 {rec['p50_first_token_ms']} "
+                    f"/ p99 {rec['p99_first_token_ms']} ms; per token p50 "
+                    f"{rec['p50_per_token_ms']} / p99 "
+                    f"{rec['p99_per_token_ms']} ms; prefix hit rate "
+                    f"{rec['prefix_hit_rate']}; handoffs {rec['handoffs']}, "
+                    f"bytes per rank {rec['migration_bytes_per_rank']}, p50 "
+                    f"{rec['p50_migration_ms']} ms; expired {rec['expired']}; "
+                    f"{rec['steps']} router steps; flash launches "
+                    f"{rec['router_flash_launches']}; teacher-forced "
+                    f"{agree}/{n_t} argmax, worst gap {worst:.4f} "
+                    f"({share:.2f} of its tolerance); peak memory per rank "
+                    f"{[round(x / mib, 2) for x in rec['peak_mem_bytes_per_rank']]}"
+                    f" GiB; {card}")
+                say(f"    checks: {c}; "
+                    f"{time.perf_counter() - t1:.1f} s")
+            del full, params
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t_phase
+        summary = {"router_mesh": {
+            "cards": n, "card": card, "seconds": seconds,
+            "passes": {k: _summary(v) for k, v in recs.items()},
+            "checks": checks}}
+        say(json.dumps(summary))
+        say(f"  phase 19 in {seconds:.1f} s ({card})")
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            raise AssertionError(f"phase 19 failed: {bad}")
+    finally:
+        dist.destroy_process_group()
+    return summary
+
+
+def run_phase19(seed, cards):
+    """Phase 19 on ``cards`` (four) cards, one process a card."""
+    log(f"phase 19: the fleet on a mesh (ServeRouter(mesh=), every rank "
+        f"running the router in lockstep): Llama-3-8B at 32 layers on tp=4 "
+        f"(affinity, random, a split fleet, skewed clocks) and dp=2 x tp=2, "
+        f"the MoE configuration on ep=4, on NCCL ({cards} cards)")
+    gc.collect()
+    mp.spawn(router_mesh_world, args=(cards, free_port(), seed),
+             nprocs=cards, join=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4821,9 +5113,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dp-only", action="store_true",
-                    help="run phases 1, 6, 7, 8, 10, 12, 13, 15, 16, 17 "
-                         "and 18 "
-                         "only, "
+                    help="run phases 1, 6, 7, 8, 10, 12, 13, 15, 16, 17, "
+                         "18 and 19 only, "
                          "on two or more cards: the multi-card check of "
                          "the data-parallel path, the eager plane, the "
                          "ResNet arm, the tp/sp step (tp=2 and sp=2 on "
@@ -4836,9 +5127,10 @@ def main(argv=None) -> int:
                          "then Q-R); then the dry run over NCCL and the "
                          "callbacks' slice at dp over the cards (up to 4), "
                          "and on four, serving on tp/ep meshes and the "
-                         "MoE island on ep x fsdp and ep x sp (phase 17) "
-                         "and the serving fleet, one worker a card "
-                         "(phase 18 (X))")
+                         "MoE island on ep x fsdp and ep x sp (phase 17), "
+                         "the serving fleet, one worker a card "
+                         "(phase 18 (X)), and the fleet on a mesh, every "
+                         "rank running the router (phase 19)")
     ap.add_argument("--phase9-dir", default=None,
                     help="where phase 9's jobs write their events and "
                          "logs (default: a new temporary directory)")
@@ -4929,6 +5221,8 @@ def main(argv=None) -> int:
                 ttr.TransformerConfig.llama3_8b(), sp_attention="flash",
                 remat=False), args.seed, 4)
             stamp()
+            run_phase19(args.seed, 4)
+            stamp()
         print(card_line(), flush=True)
         return 0
 
@@ -4992,13 +5286,14 @@ def main(argv=None) -> int:
     log("phase 18: the serving fleet (Llama-3-8B at full depth: two "
         "in-process replicas, a split fleet, two worker processes with "
         "direct and relayed migration, a SIGKILL and the trace merge)")
-    _, fleet_launches = phase_fleet(serve_cfg, args.seed,
-                                    torch.device("cuda"))
+    _, fleet_launches, fleet_mesh_launches = phase_fleet(
+        serve_cfg, args.seed, torch.device("cuda"))
     entry["paths"] = {
         "phase 5 slice": entry["launches"],
         "phase 14 serving": (serve["flash_fwd_launches"]
                              + serve["pair_flash_fwd_launches"]),
-        "phase 18 fleet": fleet_launches}
+        "phase 18 fleet": fleet_launches,
+        "phase 18 (W4) fleet on a world-1 mesh": fleet_mesh_launches}
     stamp()
 
     launches = run_phase16a(cfg, args.seed, slice_ms)

@@ -40,6 +40,16 @@ pages move worker to worker (:mod:`~horovod_tpu_torch.serve.migrate`)::
                               serve.ServeConfig(max_batch=8),
                               workers=workers, worker_seed=0)
 
+On a tp/ep mesh the fleet keeps the engine's rule: one process a card,
+and every rank runs the same ``ServeRouter(..., mesh=mesh)`` over its
+shards, submitting the same requests in the same order; every replica is
+a ``ServeEngine(mesh=)`` over that mesh, and the router reads mesh rank
+0's clock::
+
+    shards = shard_params(params, cfg, mesh, serving=True)
+    router = serve.ServeRouter(cfg, shards, serve.RouterConfig(
+        n_replicas=2), serve.ServeConfig(max_batch=8), mesh=mesh)
+
 A monolithic prefill attends through the Hopper flash kernel
 (``csrc/flash_fwd.cu``), in every replica; the paged attention of the
 other programs is torch ops, as it is XLA outside any Pallas kernel in

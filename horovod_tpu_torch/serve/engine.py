@@ -42,7 +42,8 @@ lockstep: the programs' collectives need every rank of the mesh to call
 the same program on the same shapes. Every host decision is a function
 of the submissions, the tokens (equal on every rank) and the clock, so
 each step reads the clock once and takes mesh rank 0's reading
-(:meth:`ServeEngine._now`); deadlines therefore expire alike on every
+(:meth:`ServeEngine._now`, or the reading a mesh router hands
+:meth:`ServeEngine.step`); deadlines therefore expire alike on every
 rank. A dp axis holds replicas that serve the same stream, as GSPMD
 replicates the reference's unsharded batch.
 """
@@ -556,10 +557,12 @@ class ServeEngine:
         t = torch.tensor([now], dtype=torch.float64, device=self.device)
         return collectives.broadcast(t, 0, self._lockstep).item()
 
-    def step(self) -> None:
+    def step(self, now: Optional[float] = None) -> None:
         """One iteration: retire → expire → admit → prefill chunk(s)
-        → decode."""
-        now = self._now()
+        → decode. ``now`` is a clock reading the caller already holds
+        (a router on a mesh passes mesh rank 0's), taken instead of
+        :meth:`_now`'s."""
+        now = self._now() if now is None else now
         self._retire_finished(now)
         self._expire_queued(now)
         self._admit(now)

@@ -32,6 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from horovod_tpu_torch.serve.kv_cache import pool_kv_heads
+
 #: The sane-env knob: ``auto`` (default) dials the direct channel and
 #: falls back to relayed on a failed dial; ``off`` forces the relayed
 #: path byte-for-byte.
@@ -148,17 +150,20 @@ def codec_wire_ratio(codec) -> float:
     return 0.5 if str(codec) in ("bf16", "fp16") else 1.0
 
 
-def page_nbytes(model_cfg, block_size: int) -> int:
+def page_nbytes(model_cfg, block_size: int, mesh=None) -> int:
     """Raw bytes of one K+V page pair under ``model_cfg`` — the
     per-block unit the migration planner converts block counts into
     wire bytes with. The pool holds the model's dtype: a bf16 page is
-    half an f32 one."""
+    half an f32 one. On a ``mesh`` it is this rank's page: the KV heads
+    the rank's pool holds (:func:`~horovod_tpu_torch.serve.kv_cache.
+    pool_kv_heads`)."""
     try:
         itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
     except Exception:
         itemsize = 4
     return int(2 * model_cfg.n_layers * block_size
-               * model_cfg.n_kv_heads * model_cfg.head_dim * itemsize)
+               * pool_kv_heads(model_cfg, mesh) * model_cfg.head_dim
+               * itemsize)
 
 
 def chunk_menu(n_pages: int) -> List[int]:

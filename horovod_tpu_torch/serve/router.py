@@ -44,10 +44,21 @@ Everything is deterministic for a fixed seed: FIFO placement, ties
 broken by replica id, and the random baseline drawn from the config's
 seed.
 
-A replica on a tp/ep mesh is one engine a process stepping in lockstep,
-so a fleet of mesh replicas needs a router that sends every rank of a
-replica the same requests in the same order: ``ServeRouter(mesh=...)``
-raises until then (ROADMAP Queue 1 item 19).
+**On a mesh** (``mesh=``, one process a card) the rule of
+``ServeEngine(mesh=)`` holds one level up: every rank of the mesh runs
+the same router over its own shards (``shard_params(serving=True)``),
+submits the same requests in the same order and steps in lockstep, and
+every replica is a ``ServeEngine(mesh=)`` over the same mesh, as the
+reference shards every replica over its one mesh. Every decision is a
+function of the submissions, the tokens (equal on every rank) and mesh
+rank 0's readings: each clock read is rank 0's, broadcast as one f64
+over the mesh (the engines take the step's reading and do not broadcast
+again), and the topology model a page move is scored on is rank 0's,
+broadcast once a step. A handoff moves each rank's KV heads into the
+same rank's pool of the target replica. Rank 0 writes the router's
+trace file, and every rank its replicas' under its own rank's name.
+Worker replicas stay meshless, as in the reference, and are not yet
+allowed beside a mesh fleet (:data:`MESH_WORKERS_TODO`).
 """
 
 from __future__ import annotations
@@ -60,13 +71,19 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.device import resolve_device
+from horovod_tpu_torch.functions import broadcast_object
 from horovod_tpu_torch.models.transformer import param_leaves
+from horovod_tpu_torch.ops import collectives
+from horovod_tpu_torch.parallel.mesh import AXES, axes_group
 from horovod_tpu_torch.serve import migrate as migrate_mod
 from horovod_tpu_torch.serve.engine import (
     QueueFull, RequestResult, RetireEma, ServeConfig, ServeEngine,
-    validate_request,
+    check_serve_mesh, validate_request,
 )
 from horovod_tpu_torch.serve.kv_cache import hash_chain
 from horovod_tpu_torch.serve.metrics import MAX_SAMPLES, percentile
@@ -74,12 +91,17 @@ from horovod_tpu_torch.serve.rpc import (RemoteReplica, RpcConnectionError,
                                          span_codec_id)
 from horovod_tpu_torch.serve.trace import RouterTrace, mint_trace_id
 
-#: What ``ServeRouter(mesh=...)`` raises with.
-MESH_TODO = ("a fleet of replicas on a tp/ep mesh is ROADMAP Queue 1 item "
-             "19: every rank of a replica must receive the same requests in "
-             "the same order, and the router must read the broadcast clock "
-             "for its deadlines; serve one mesh with one ServeEngine(mesh=) "
-             "per process instead")
+#: What a worker replica beside a mesh fleet raises with.
+MESH_WORKERS_TODO = (
+    "worker replicas beside a mesh fleet are ROADMAP Queue 1 item 20: only "
+    "mesh rank 0 may hold a worker's connection, so every other rank needs "
+    "a mirror of the replica that returns rank 0's reply to each call; "
+    "build the mesh fleet of in-process replicas, or the worker fleet "
+    "without mesh=")
+
+#: The topology model not yet read this step (a mesh router reads it
+#: once a step).
+_UNREAD = object()
 
 #: Bound on the router's placed-chain hint index (16-byte hashes ->
 #: ~3 MB at the cap); beyond it the oldest routing hints fall off.
@@ -444,9 +466,18 @@ class FleetMetrics:
 class ServeRouter:
     """N engine replicas behind one admission front door.
 
-    In-process replicas share the model config, params and engine
+    In-process replicas share the model config, params, mesh and engine
     geometry — so they share one set of programs (``make_serve_fns``
     memoizes on the geometry) and adding a replica costs a KV pool.
+
+    On a mesh every rank of the mesh constructs the same router over
+    this rank's shards (``shard_params(params, cfg, mesh,
+    serving=True)``), calls the same methods with the same arguments in
+    the same order (``submit``, ``step``, ``add_replica``,
+    ``remove_replica``, ``export_fleet_trace`` ...) and so steps every
+    replica in lockstep, as one ``ServeEngine(mesh=)`` a process does;
+    a rank that submits something else hangs the mesh. Deadlines are
+    read on mesh rank 0's clock (:meth:`now`).
     """
 
     def __init__(self, model_cfg, params,
@@ -464,18 +495,35 @@ class ServeRouter:
         (pass ``params=None`` for an all-remote fleet; it is only used
         to build in-process engines). With ``workers=None`` every
         replica is in-process. In-process engines run on ``device``
-        (default: the device of ``params``). ``mesh`` raises
-        ``NotImplementedError`` (:data:`MESH_TODO`)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+        (default: the device of ``params``). ``mesh`` (a tp/ep/dp
+        mesh, as ``ServeEngine(mesh=)`` takes) shards every in-process
+        replica over it; ``params`` are then this rank's shards, and
+        ``workers`` raise ``NotImplementedError``
+        (:data:`MESH_WORKERS_TODO`)."""
+        if mesh is not None and workers:
+            raise NotImplementedError(MESH_WORKERS_TODO)
         self.cfg = router_cfg or RouterConfig()
         self._model_cfg = model_cfg
         self._params = params
         self._serve_cfg = serve_cfg or ServeConfig()
         self._device = (device if device is not None or params is None
                         else param_leaves(params)[0].device)
-        self._clock = clock
         self._worker_seed = worker_seed
+        # The mesh every in-process replica is sharded over, and the
+        # group its ranks step the router in lockstep over (None for
+        # one process): each clock read is rank 0's, broadcast.
+        self._mesh = mesh
+        self._lockstep = None
+        self._topo = _UNREAD
+        if mesh is not None:
+            self._device = resolve_device(self._device)
+            check_serve_mesh(model_cfg, mesh, self._device)
+            group = axes_group(mesh, AXES)
+            if collectives.axis_size(group) > 1:
+                self._lockstep = group
+        self._raw_clock = clock
+        self._clock = (clock if self._lockstep is None
+                       else self._broadcast_clock)
         # Registered model groups; the constructor args define the
         # DEFAULT_MODEL group, add_model() registers more (draft/target
         # pairs, A/B fleets, per-tenant models as ordinary members).
@@ -503,7 +551,7 @@ class ServeRouter:
         # request's timeline. Ids are minted at submit (salted by
         # cfg.seed — deterministic across seeded reruns) and ride the
         # RPC frame header to workers.
-        self.trace = RouterTrace(clock=clock)
+        self.trace = RouterTrace(clock=self._clock)
         # "env" resolves the sane-env knob ONCE at fleet construction
         # (a fleet never flips mid-life); "auto"/"off" force it.
         self._direct_mode = (migrate_mod.direct_migration_mode()
@@ -532,10 +580,40 @@ class ServeRouter:
             self._add_replica(role, worker=workers[i] if workers
                               else None)
 
+    # -- the mesh's lockstep ------------------------------------------
+
+    def _broadcast_clock(self) -> float:
+        """Mesh rank 0's reading of the router's clock, broadcast over
+        the lockstep group as one f64: every rank then expires,
+        stamps and times alike."""
+        t = torch.tensor([self._raw_clock()], dtype=torch.float64,
+                         device=self._device)
+        return collectives.broadcast(t, 0, self._lockstep).item()
+
+    def now(self) -> float:
+        """The router's clock: on a mesh, rank 0's reading (a
+        collective: every rank calls it alike). Deadlines passed to
+        :meth:`submit` are on this clock."""
+        return self._clock()
+
+    def _topology(self) -> Optional[Dict[str, Any]]:
+        """The measured topology model page moves are scored on: this
+        process's, or on a mesh rank 0's, broadcast once a step, so
+        per-rank noise cannot split a tie differently on two ranks."""
+        if self._lockstep is None:
+            return migrate_mod.fleet_topology()
+        if self._topo is _UNREAD:
+            mine = (migrate_mod.fleet_topology()
+                    if dist.get_rank(self._lockstep) == 0 else None)
+            self._topo = broadcast_object(mine, 0, self._lockstep)
+        return self._topo
+
     # -- membership --------------------------------------------------
 
     def _add_replica(self, role: str, worker: Any = None,
                      model: str = DEFAULT_MODEL) -> _Replica:
+        if worker is not None and self._mesh is not None:
+            raise NotImplementedError(MESH_WORKERS_TODO)
         group = self._models[model]
         inst = str(next(self._next_instance))
         # Router-facing id (`inst`) is per-router and deterministic —
@@ -556,9 +634,13 @@ class ServeRouter:
                 raise ValueError(
                     "params=None: cannot build an in-process replica "
                     "(pass params, or a worker handle per replica)")
+            # On a mesh the engine keeps this rank's own clock for its
+            # metrics and takes the router's broadcast reading each
+            # step (``step(now)``).
             eng = ServeEngine(group.model_cfg, group.params,
-                              group.serve_cfg, clock=self._clock,
-                              instance=label, device=self._device)
+                              group.serve_cfg, mesh=self._mesh,
+                              clock=self._raw_clock, instance=label,
+                              device=self._device)
         rep = _Replica(instance=inst, role=role, engine=eng,
                        model=model, remote=worker is not None)
         self._replicas.append(rep)
@@ -1183,13 +1265,13 @@ class ServeRouter:
         alpha-beta model (mirrored by the native
         ``hvd_migration_cost_us``). No model (the tests' fleets, single
         hosts) degrades to the default chunking with cost 0."""
-        topo = migrate_mod.fleet_topology()
+        topo = self._topology()
         n_ranks = int(topo["np"]) if topo else 0
         return migrate_mod.plan_migration(
             need_blocks,
             migrate_mod.page_nbytes(
                 self._models[src.model].model_cfg,
-                src.engine.allocator.block_size),
+                src.engine.allocator.block_size, mesh=self._mesh),
             src=migrate_mod.replica_rank(src.instance, n_ranks),
             dst=migrate_mod.replica_rank(target.instance, n_ranks),
             codec=self.cfg.handoff_compression, model=topo)
@@ -1312,8 +1394,7 @@ class ServeRouter:
         the historical pure least-load. Pages only ever move between
         replicas of one model group: a KV page is meaningless under
         another model's weights."""
-        topo = migrate_mod.fleet_topology() if source is not None \
-            else None
+        topo = self._topology() if source is not None else None
         n_ranks = int(topo["np"]) if topo else 0
         src_rank = (migrate_mod.replica_rank(source.instance, n_ranks)
                     if source is not None else 0)
@@ -1323,7 +1404,7 @@ class ServeRouter:
                 need_blocks
                 * migrate_mod.page_nbytes(
                     self._models[model].model_cfg,
-                    source.engine.allocator.block_size)
+                    source.engine.allocator.block_size, mesh=self._mesh)
                 * migrate_mod.codec_wire_ratio(
                     self.cfg.handoff_compression))
         cands = []
@@ -1355,18 +1436,20 @@ class ServeRouter:
         drained replicas. A worker that died since the last step is
         detected at its first RPC this step and its uncollected work
         requeues at the front — nothing is dropped, nothing resolves
-        twice."""
+        twice. On a mesh the step's clock reading (rank 0's) is the
+        one every engine steps on."""
         now = self._clock()
+        self._topo = _UNREAD
         self._heartbeat_sweep(now)
         self._expire_queued(now)
         self._collect_handoffs()
         self._migrate_draining()
         self._place_queued()
-        self._step_replicas()
+        self._step_replicas(now if self._mesh is not None else None)
         self._collect_results()
         self._reap_drained()
 
-    def _step_replicas(self) -> None:
+    def _step_replicas(self, now: Optional[float] = None) -> None:
         """Step every busy replica. Remote replicas' step RPCs FAN
         OUT: the request frame goes to every busy worker first
         (``step_begin``), in-process replicas step while the workers
@@ -1378,7 +1461,8 @@ class ServeRouter:
         network arrival order — so placement logs and results remain
         seed-deterministic. A worker that died is detected at its send
         OR its reply; either way ``_handle_dead`` requeues its work
-        exactly once."""
+        exactly once. ``now`` (on a mesh) is the reading in-process
+        engines step on instead of reading their own clocks."""
         started: List[_Replica] = []
         try:
             # Remote begins FIRST (all of them), in-process steps
@@ -1394,7 +1478,7 @@ class ServeRouter:
             for rep in list(self._replicas):
                 if (rep in self._replicas and not rep.remote
                         and rep.engine.pending):
-                    self._guard(rep, rep.engine.step)
+                    self._guard(rep, lambda e=rep.engine: e.step(now))
             while started:
                 rep = started.pop(0)
                 if rep in self._replicas:
@@ -1510,16 +1594,27 @@ class ServeRouter:
         over the directory produces the single-timebase Perfetto
         view. Returns the paths written. Remote replicas with no
         offset sample yet get one forced heartbeat first (a fleet
-        that never idled may never have swept them)."""
+        that never idled may never have swept them). On a mesh
+        (every rank calls it alike) mesh rank 0 writes ``router.json``
+        and each rank its replicas' spans as
+        ``replica-<instance>-rank<global rank>.json``, so no file is
+        written twice."""
         import json as _json
         os.makedirs(dir_path, exist_ok=True)
         paths = []
-        p = os.path.join(dir_path, "router.json")
-        self.trace.export(p, fleet=self.metrics.fleet)
-        paths.append(p)
+        # Every rank reads the anchor: on a mesh the clock read is a
+        # collective.
+        meta = self.trace.metadata(fleet=self.metrics.fleet)
+        suffix = ""
+        if self._mesh is not None:
+            suffix = f"-rank{dist.get_rank()}"
+        if self._lockstep is None or dist.get_rank(self._lockstep) == 0:
+            p = os.path.join(dir_path, "router.json")
+            self.trace.export(p, metadata=meta)
+            paths.append(p)
         for rep in list(self._replicas):
             p = os.path.join(dir_path,
-                             f"replica-{rep.instance}.json")
+                             f"replica-{rep.instance}{suffix}.json")
             if rep.remote:
                 if rep.engine.clock_rtt == float("inf"):
                     self._guard(rep, rep.engine.heartbeat)

@@ -135,8 +135,12 @@ class RouterTrace:
         md.update(extra)
         return md
 
-    def export(self, path: str, **extra: Any) -> None:
+    def export(self, path: str, metadata: Optional[Dict[str, Any]] = None,
+               **extra: Any) -> None:
+        """Write the spans and an anchor: ``metadata`` as read
+        beforehand, or :meth:`metadata` of ``extra`` now."""
         with open(path, "w") as f:
             json.dump({"traceEvents": self._events,
                        "displayTimeUnit": "ms",
-                       "metadata": self.metadata(**extra)}, f)
+                       "metadata": (self.metadata(**extra)
+                                    if metadata is None else metadata)}, f)

@@ -17,7 +17,9 @@ same trace, seed and fake clock. Held exactly:
   log, the rollup's counters, the raised errors) equal between the
   packages, and the reference's own assertions on the port's run.
 
-``ServeRouter(mesh=...)`` raises and names ROADMAP item 19.
+``ServeRouter(mesh=...)`` refuses a mesh its engines could not serve on,
+as ``check_serve_mesh`` does (the fleet on a mesh itself is
+``tests/test_torch_router_mesh.py``'s).
 """
 
 import types
@@ -508,7 +510,28 @@ def test_router_randomized_property(pkgs, seed):
     assert len(log) > 10
 
 
-def test_router_on_a_mesh_raises_naming_item_19(pkgs):
+class _StandInMesh:
+    """A ``DeviceMesh`` stand-in: its device type and named axes."""
+
+    def __init__(self, device_type, **axes):
+        self.device_type = device_type
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, i):
+        return self._sizes[i]
+
+
+@pytest.mark.parametrize("mesh", [
+    _StandInMesh("cuda", dp=1, tp=1),
+    _StandInMesh("cpu", dp=1, sp=2),
+    _StandInMesh("cpu", dp=1, fsdp=2)], ids=["cuda_mesh", "sp", "fsdp"])
+def test_router_refuses_a_mesh_its_engines_cannot_serve_on(pkgs, mesh):
+    from horovod_tpu_torch.serve.engine import check_serve_mesh
+
     ns = pkgs["port"]
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tserve.ServeRouter(ns.cfg, ns.params, mesh=object())
+    with pytest.raises(ValueError) as want:
+        check_serve_mesh(ns.cfg, mesh, torch.device("cpu"))
+    with pytest.raises(ValueError) as got:
+        tserve.ServeRouter(ns.cfg, ns.params, mesh=mesh, clock=FakeClock())
+    assert str(got.value) == str(want.value)
