@@ -145,7 +145,10 @@ exits non-zero with no result line:
    affinity fleet through ``ServeRouter(mesh=build_mesh(tp=1))`` on a
    world of this one process, whose streams and placement log must be
    (W1)'s, bitwise (its flash launches are a path of their own in the
-   kernels' line). Holds: the kernel
+   kernels' line); (W5) the same world-1 mesh router with one in-process
+   replica beside one of (W3)'s worker processes (``workers=[None,
+   worker]``), bitwise (W1) affinity's too (a path of its own as well).
+   Holds: the kernel
    ran n_layers times per monolithic prefill and nowhere else in every
    replica (per program in this process, launches against monolithic
    prefills in a worker); affinity's prefix hit rate above random's;
@@ -289,23 +292,31 @@ teacher-forced on card 0 once the fleet is down. Last, on four cards,
 phase 19 (``run_phase19``): the fleet on a mesh, one process a card,
 every rank running the same ``ServeRouter(mesh=)`` over its shards of
 the whole parameters (drawn from the seed, broadcast) on phase 18's
-trace, two in-process replicas a fleet (``ROUTER_MESH_PASSES``): (Y1)
+trace, two replicas a fleet (``ROUTER_MESH_PASSES``): (Y1)
 Llama-3-8B at 32 layers on tp=4 with affinity and with random
 placement, (Y2) a split fleet of one prefill and one decode replica on
 tp=4 (each handoff moves the rank's KV heads), the affinity fleet again
 with rank r's clock reading 50·r s ahead and a deadline on every third
 request, (Y3) dp=2 x tp=2 and (Y4) the MoE configuration of phase 17
-on ep=4. Holds on every rank: streams, placement logs and statuses
-equal on every rank; (Y1)'s and (Y2)'s placement logs those of a
-one-card router on the same trace (run first on every card); every
-request resolved once (the skewed pass expiring some, the same on every
-rank, and serving the rest); n_layers flash launches per monolithic
-prefill per replica and none elsewhere; every pool's ``data_ptr``; every
-served stream teacher-forced against the one-card ``forward``; the split
-fleet handing every request off once. It prints tokens/s, the
+on ep=4; then, beside a worker process rank 0 spawns on the last card
+(every other rank mirroring its calls), (Y5) one tp=4 replica and the
+worker with affinity, (Y6) split fleets both ways (a tp=4 prefill
+replica handing off to the worker, the worker to a tp=4 decode
+replica), and (Y7) (Y5) with the worker SIGKILLed mid-trace. Holds on
+every rank: streams, placement logs and statuses equal on every rank;
+(Y1)'s, (Y2)'s, (Y5)'s and (Y6)'s placement logs those of a one-card
+router on the same trace (run first on every card); every request
+resolved once (the skewed pass expiring some, the same on every rank,
+and serving the rest; (Y7) requeuing the worker's); n_layers flash
+launches per monolithic prefill per replica, the worker's from its
+beats, and none elsewhere; every pool's ``data_ptr``; every served
+stream teacher-forced against the one-card ``forward``; the split
+fleets handing every request off once, a move to or from the worker
+counting its whole pages on every rank. It prints tokens/s, the
 first-token and per-token tails, the hit rate, handoffs with their
-bytes per rank and p50 ms, per-rank peak memory and the seconds, beside
-the card's ``nvidia-smi`` line. ``--dp-only`` prints no result line.
+bytes per rank and p50 ms, the mirror broadcasts a router step,
+per-rank and per-worker peak memory and the seconds, beside the card's
+``nvidia-smi`` line. ``--dp-only`` prints no result line.
 """
 
 import argparse
@@ -321,6 +332,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -345,6 +357,7 @@ from horovod_tpu_torch.parallel.mesh import (build_mesh, data_parallel_mesh,
 from horovod_tpu_torch.runtime import get_runtime
 from horovod_tpu_torch.serve import bench as sbench
 from horovod_tpu_torch.serve import engine as sengine
+from horovod_tpu_torch.serve import rpc as srpc
 from horovod_tpu_torch.serve.speculative import (DraftConfig,
                                                  make_draft_target_params)
 
@@ -4044,12 +4057,14 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
                kill=None, kill_after=3, mesh=None, clock=time.perf_counter,
                deadlines=None, **rc):
     """One cold fleet over ``trace``: in-process replicas over ``params``
-    (their programs' flash launches tallied per replica), or the worker
+    (their programs' flash launches tallied per replica), and the worker
     processes ``workers`` (their launches and peak memory read from their
-    beats, their monolithic prefills from their trace spans). ``kill``
-    (a worker handle) is SIGKILLed after ``kill_after`` router steps.
-    With ``mesh`` every rank of it runs this pass alike, ``params`` this
-    rank's shards. ``deadlines`` (seconds after the first submission on
+    beats, their monolithic prefills from their trace spans; a ``None``
+    among them is an in-process replica). ``kill`` (a worker handle) is
+    SIGKILLed after ``kill_after`` router steps. With ``mesh`` every
+    rank of it runs this pass alike, ``params`` this rank's shards (and
+    beside it a worker is mesh rank 0's handle, a ``MirrorHandle`` on
+    every other rank). ``deadlines`` (seconds after the first submission on
     the router's clock, or None, a request) makes those requests
     expirable. Returns the pass's record; ``_streams`` the token streams
     in trace order, ``_log`` the placement log, ``_status`` the
@@ -4060,14 +4075,13 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
     router = ServeRouter(cfg, params, RouterConfig(
         n_replicas=rc.pop("n_replicas", 2), max_queue=len(trace), **rc),
         sc, workers=workers, mesh=mesh, clock=clock)
-    tallies = {}
-    if workers is None:
-        tallies = {r.instance: count_program_launches([r.engine])
-                   for r in router._replicas}
-    pools = [(e.cache.k.data_ptr(), e.cache.v.data_ptr())
-             for e in router.engines if workers is None]
+    local = [r.engine for r in router._replicas if not r.remote]
+    tallies = {r.instance: count_program_launches([r.engine])
+               for r in router._replicas if not r.remote}
+    pools = [(e.cache.k.data_ptr(), e.cache.v.data_ptr()) for e in local]
     before = _worker_stats(router)
     deadlines = deadlines or [None] * len(trace)
+    srpc.LockstepConn.broadcasts = 0
     tfa.flash_fwd_cuda.launches = 0
     t0 = time.perf_counter()
     base = router.now()
@@ -4081,6 +4095,7 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
             kill.kill()
     wall = time.perf_counter() - t0
     launches = tfa.flash_fwd_cuda.launches
+    mirror_broadcasts = srpc.LockstepConn.broadcasts
     res = [router.result(r) for r in rids]
     snap = router.metrics.snapshot()
     after = _worker_stats(router)
@@ -4112,6 +4127,7 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
         "p50_migration_ms": snap["p50_migration_ms"],
         "worker_deaths": snap["worker_deaths"],
         "requeued": snap["requeued_total"],
+        "mirror_broadcasts_per_step": mirror_broadcasts / max(steps, 1),
         "expired": statuses.count("expired"),
         "resolved_once": (len(res) == len(rids)
                           and all(x is not None and (
@@ -4121,8 +4137,7 @@ def fleet_pass(name, cfg, trace, sc, *, params=None, workers=None,
                           and len({x.rid for x in res}) == len(rids)),
         "pools_in_place": pools == [(e.cache.k.data_ptr(),
                                      e.cache.v.data_ptr())
-                                    for e in router.engines
-                                    if workers is None],
+                                    for e in local],
         "programs": {k: {p: list(v) for p, v in t.items()}
                      for k, t in tallies.items()},
         "router_flash_launches": launches,
@@ -4184,6 +4199,9 @@ def _log_pass(rec):
         f"{rec['p50_migration_ms']} ms); deaths {rec['worker_deaths']}, "
         f"requeued {rec['requeued']}; every request resolved once: "
         f"{rec['resolved_once']}; {rec['steps']} router steps")
+    if rec["mirror_broadcasts_per_step"]:
+        log(f"    mirror broadcasts a router step: "
+            f"{rec['mirror_broadcasts_per_step']:.2f}")
     for inst, t in rec["programs"].items():
         log(f"    replica {inst} (in-process) [calls, flash launches] by "
             f"program: {t}")
@@ -4236,6 +4254,26 @@ def _teacher(name, params, cfg, trace, streams):
     return ok
 
 
+def world1_mesh_pass(name, cfg, trace, sc, params, device, **kw):
+    """:func:`fleet_pass` through ``ServeRouter(mesh=build_mesh(tp=1))``
+    on a world of this one process (brought up for the pass where there
+    is none): the mesh router's code path on one card, ``params`` the
+    whole weights."""
+    own_world = not dist.is_initialized()
+    if own_world:
+        init_process_group(device)
+    try:
+        mesh1 = build_mesh(tp=1)
+        shards = ttr.shard_params(params, cfg, mesh1, serving=True)
+        rec = fleet_pass(name, cfg, trace, sc, params=shards, mesh=mesh1,
+                         **kw)
+        rec.pop("_router")
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+    return rec
+
+
 def phase_fleet(cfg, seed, device, dims=None):
     """Phase 18 on one device: (W1) two in-process replicas sharing one
     set of weights, cache-affinity and random placement, each a cold
@@ -4246,8 +4284,11 @@ def phase_fleet(cfg, seed, device, dims=None):
     against (W1)'s, the split fleet with direct and with relayed
     migration, a SIGKILL mid-trace, and the fleet trace merged with its
     critical path; (W4) (W1)'s affinity fleet through
-    ``ServeRouter(mesh=)`` on a world-1 mesh, bitwise (W1)'s. Returns the
-    summary, the flash launches of the phase outside (W4), and (W4)'s."""
+    ``ServeRouter(mesh=)`` on a world-1 mesh, bitwise (W1)'s; (W5) that
+    mesh router with one in-process replica beside one of (W3)'s
+    workers, bitwise (W1)'s too. Returns the summary, the flash launches
+    of the phase outside (W4) and (W5), and theirs ({"W4": n, "W5":
+    n})."""
     from horovod_tpu_torch.serve import trace_merge
     from horovod_tpu_torch.serve.rpc import spawn_worker
 
@@ -4299,17 +4340,8 @@ def phase_fleet(cfg, seed, device, dims=None):
     # this one process: the mesh router's code path, whose streams and
     # placement log must be (W1)'s, bitwise.
     t0 = time.perf_counter()
-    own_world = not dist.is_initialized()
-    if own_world:
-        init_process_group(device)
-    mesh1 = build_mesh(tp=1)
-    shards = ttr.shard_params(params, cfg, mesh1, serving=True)
-    rec = fleet_pass("W4 mesh affinity", cfg, trace, sc_on, params=shards,
-                     mesh=mesh1, placement="affinity", seed=seed)
-    rec.pop("_router")
-    del shards
-    if own_world:
-        dist.destroy_process_group()
+    rec = world1_mesh_pass("W4 mesh affinity", cfg, trace, sc_on, params,
+                           device, placement="affinity", seed=seed)
     passes[rec["name"]] = rec
     mesh_launches = rec["router_flash_launches"]
     _log_pass(rec)
@@ -4395,6 +4427,21 @@ def phase_fleet(cfg, seed, device, dims=None):
                 rec["handoffs"] == len(trace)
                 and rec["direct_migrations"] == (len(trace) if mode == "auto"
                                                  else 0))
+        # (W5) (W4)'s world-1 mesh router with one in-process replica
+        # beside worker 0: the weights drawn again here (the checks below
+        # read them too) beside the two workers'.
+        params = ttr.init_params(
+            cfg, torch.Generator(device).manual_seed(seed), device=device)
+        if cuda:
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        rec = world1_mesh_pass("W5 mesh + worker affinity", cfg, trace,
+                               sc_on, params, device,
+                               workers=[None, workers[0]],
+                               placement="affinity", seed=seed)
+        passes[rec["name"]] = rec
+        _log_pass(rec)
+        log(f"  W5: {time.perf_counter() - t1:.1f} s")
         rec = fleet_pass("W3 SIGKILL", cfg, trace, sc_on, workers=workers,
                          placement="affinity", seed=seed, kill=workers[1],
                          kill_after=dims["kill_after"])
@@ -4414,9 +4461,19 @@ def phase_fleet(cfg, seed, device, dims=None):
         checks[f"{name} launches"] = fleet_launches_ok(rec, n_layers, cuda)
         checks[f"{name} resolved"] = rec["resolved_once"]
 
-    # The checks that read the weights, drawn again from the seed.
-    params = ttr.init_params(cfg, torch.Generator(device).manual_seed(seed),
-                             device=device)
+    w5 = passes["W5 mesh + worker affinity"]
+    w5_launches = (w5["router_flash_launches"]
+                   + sum(w["flash_launches"] for w in w5["workers"].values()))
+    checks["W5 launches"] = fleet_launches_ok(w5, n_layers, cuda)
+    checks["W5 resolved"] = w5["resolved_once"]
+    checks["W5 pools in place"] = w5["pools_in_place"]
+    checks["W5 streams bitwise W1"] = w5["_streams"] == w1["_streams"]
+    checks["W5 placement log W1"] = w5["_log"] == w1["_log"]
+    log(f"  W5: streams bitwise (W1) affinity's: "
+        f"{checks['W5 streams bitwise W1']}; placement log (W1)'s: "
+        f"{checks['W5 placement log W1']}; flash launches {w5_launches}")
+
+    # The checks that read the weights (drawn again before (W5)).
     d, r = passes["W3 split direct"], passes["W3 split relayed"]
     for name, got, want in (
             ("W3 affinity against W1 affinity",
@@ -4446,7 +4503,7 @@ def phase_fleet(cfg, seed, device, dims=None):
     bad = [k for k, v in checks.items() if not v]
     if bad:
         raise AssertionError(f"phase 18 failed: {bad}")
-    return summary, launches, mesh_launches
+    return summary, launches, {"W4": mesh_launches, "W5": w5_launches}
 
 
 def phase_fleet_cards(cfg, seed, cards, dims=None, device_kind="cuda"):
@@ -4556,19 +4613,56 @@ def phase_fleet_cards(cfg, seed, cards, dims=None, device_kind="cuda"):
 #: model, router knobs, prefix cache on, the one-card pass whose
 #: placement log it must equal, skewed clocks). "dense" is Llama-3-8B at
 #: 32 layers, "moe" phase 17's served MoE configuration.
+#: ``RouterConfig.rpc_timeout`` of phase 19's passes with a worker: under
+#: the world's collective timeout (``TP_TIMEOUT``), for the other ranks
+#: wait in a broadcast while rank 0 waits on the worker.
+WORKER_RPC_S = 120.0
+
+
+class RouterMeshPass(NamedTuple):
+    """One pass of phase 19: its name, mesh axes, model ("dense" or
+    "moe"), router knobs, whether the prefix cache is on, the one-card
+    reference it is held to (or None), the skewed clocks, the layout of
+    a fleet with a worker ("mw": replica 0 on the mesh, replica 1 the
+    worker; "wm" the other way; None: both on the mesh) and whether the
+    worker is SIGKILLed mid-trace."""
+
+    name: str
+    axes: dict
+    kind: str
+    knobs: dict
+    cache: bool
+    ref: Optional[str]
+    skew: bool = False
+    workers: Optional[str] = None
+    kill: bool = False
+
+
 ROUTER_MESH_PASSES = (
-    ("Y1 affinity", {"tp": 4}, "dense", dict(placement="affinity"), True,
-     "W1 affinity", False),
-    ("Y1 random", {"tp": 4}, "dense", dict(placement="random"), True,
-     "W1 random", False),
-    ("Y2 split", {"tp": 4}, "dense", dict(n_prefill=1), False, "W2 split",
-     False),
-    ("Y1 skewed", {"tp": 4}, "dense", dict(placement="affinity"), True,
-     None, True),
-    ("Y3 affinity", {"dp": 2, "tp": 2}, "dense", dict(placement="affinity"),
-     True, None, False),
-    ("Y4 affinity", {"ep": 4}, "moe", dict(placement="affinity"), True, None,
-     False),
+    RouterMeshPass("Y1 affinity", {"tp": 4}, "dense",
+                   dict(placement="affinity"), True, "W1 affinity"),
+    RouterMeshPass("Y1 random", {"tp": 4}, "dense",
+                   dict(placement="random"), True, "W1 random"),
+    RouterMeshPass("Y2 split", {"tp": 4}, "dense", dict(n_prefill=1), False,
+                   "W2 split"),
+    RouterMeshPass("Y1 skewed", {"tp": 4}, "dense",
+                   dict(placement="affinity"), True, None, skew=True),
+    RouterMeshPass("Y5 mesh + worker", {"tp": 4}, "dense",
+                   dict(placement="affinity", rpc_timeout=WORKER_RPC_S),
+                   True, "W1 affinity", workers="mw"),
+    RouterMeshPass("Y6 split mesh -> worker", {"tp": 4}, "dense",
+                   dict(n_prefill=1, rpc_timeout=WORKER_RPC_S), False,
+                   "W2 split", workers="mw"),
+    RouterMeshPass("Y6 split worker -> mesh", {"tp": 4}, "dense",
+                   dict(n_prefill=1, rpc_timeout=WORKER_RPC_S), False,
+                   "W2 split", workers="wm"),
+    RouterMeshPass("Y7 SIGKILL", {"tp": 4}, "dense",
+                   dict(placement="affinity", rpc_timeout=WORKER_RPC_S),
+                   True, None, workers="mw", kill=True),
+    RouterMeshPass("Y3 affinity", {"dp": 2, "tp": 2}, "dense",
+                   dict(placement="affinity"), True, None),
+    RouterMeshPass("Y4 affinity", {"ep": 4}, "moe",
+                   dict(placement="affinity"), True, None),
 )
 #: The skewed pass: rank r's clock reads ``perf_counter() + ROUTER_SKEW_S
 #: * r``, and every third request has a deadline, the k-th of them
@@ -4583,32 +4677,43 @@ def skewed_deadlines(n):
             for i in range(n)]
 
 
-def router_mesh_pass(name, cfg, trace, sc, full, params, mesh, knobs, seed,
-                     ref_log=None, skew=False):
-    """One pass of phase 19 on this rank: the fleet over ``mesh`` (this
-    rank's ``params`` shards of ``full``), every rank alike. Returns
-    (the pass's record, its checks, each held on every rank): streams,
-    placement log and statuses equal on every rank; the placement log
-    ``ref_log`` (the one-card router's on the same trace), if given;
-    every request resolved once; n_layers flash launches per monolithic
-    prefill per replica and none elsewhere; every pool's ``data_ptr``
-    unchanged; every served stream teacher-forced against the one-card
-    ``forward`` of ``full``; a split fleet handing every request off
-    once; the skewed pass expiring some requests and serving others."""
+def router_mesh_pass(p, cfg, trace, sc, full, params, mesh, seed, ref=None,
+                     worker=None, kill_after=3):
+    """Pass ``p`` (a :class:`RouterMeshPass`) of phase 19 on this rank:
+    the fleet over ``mesh`` (this rank's ``params`` shards of ``full``),
+    every rank alike; beside it, for a pass with a worker, ``worker``
+    (mesh rank 0's handle, a ``MirrorHandle`` elsewhere). Returns (the
+    pass's record, its checks, each held on every rank): streams,
+    placement log and statuses equal on every rank; the placement log of
+    ``ref`` (the one-card router's (log, streams) on the same trace), if
+    given; every request resolved once; n_layers flash launches per
+    monolithic prefill per replica, the worker's included, and none
+    elsewhere; every pool's ``data_ptr`` unchanged; every served stream
+    teacher-forced against the one-card ``forward`` of ``full``; a split
+    fleet handing every request off once, and with a worker counting its
+    whole pages; the skewed pass expiring some requests and serving
+    others; a SIGKILLed worker's work requeued."""
+    from horovod_tpu_torch.serve import migrate
+
     rank = dist.get_rank()
     device = param_device(params)
     cuda = device.type == "cuda"
     clock, deadlines = time.perf_counter, None
-    if skew:
+    if p.skew:
         def clock():
             return time.perf_counter() + ROUTER_SKEW_S * rank
 
         deadlines = skewed_deadlines(len(trace))
+    workers = None
+    if p.workers:
+        workers = [worker if c == "w" else None for c in p.workers]
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    rec = fleet_pass(name, cfg, trace, sc, params=params, mesh=mesh,
-                     clock=clock, deadlines=deadlines, seed=seed, **knobs)
+    rec = fleet_pass(p.name, cfg, trace, sc, params=params, mesh=mesh,
+                     clock=clock, deadlines=deadlines, seed=seed,
+                     workers=workers, kill=worker if p.kill else None,
+                     kill_after=kill_after, **p.knobs)
     rec.pop("_router")
     view = (rec["_streams"], rec["_log"], rec["_status"])
     every = allgather_object(view)
@@ -4626,13 +4731,31 @@ def router_mesh_pass(name, cfg, trace, sc, full, params, mesh, knobs, seed,
         "pools in place": rec["pools_in_place"],
         "teacher-forced": bool(served) and teacher[4],
     }
-    if ref_log is not None:
-        checks["placement log one card's"] = rec["_log"] == ref_log
-    if knobs.get("n_prefill"):
+    if ref is not None:
+        checks["placement log one card's"] = rec["_log"] == ref[0]
+    if p.knobs.get("n_prefill"):
         checks["handed off once"] = rec["handoffs"] == len(trace)
-    if skew:
+        if p.workers:
+            # A move to or from the worker counts its whole pages (what
+            # crosses its wire), on every rank.
+            bs = sc.block_size
+            checks["whole pages counted"] = rec["migration_bytes"] == (
+                sum(-(-len(q) // bs) for q, _ in trace)
+                * migrate.page_nbytes(cfg, bs))
+    elif p.workers and ref is not None:
+        # The worker (replica "1") serves the requests the one-card
+        # router's replica 1 served: its weights are the world's draw.
+        placed = {rid: inst for rid, inst, m, _ in rec["_log"] if m >= 0}
+        mine = [i for i in range(len(trace)) if placed.get(i) == "1"]
+        rec["worker_streams_bitwise_one_card"] = (
+            f"{sum(rec['_streams'][i] == ref[1][i] for i in mine)}"
+            f"/{len(mine)}")
+    if p.skew:
         checks["some expired, some served"] = (
             0 < rec["expired"] < len(trace))
+    if p.kill:
+        checks["one death, its work requeued"] = (
+            rec["worker_deaths"] == 1 and rec["requeued"] >= 1)
     every_checks = allgather_object(checks)
     rec["peak_mem_bytes_per_rank"] = allgather_object(
         rec["router_peak_mem_bytes"])
@@ -4653,9 +4776,13 @@ def router_mesh_world(rank, n, port, seed, device=None, dims=None,
     parameters on this rank's card, on the same trace); then each pass of
     ``passes`` (:func:`router_mesh_pass`) through ``ServeRouter(mesh=)``
     on this rank's shards, a short round-robin pass first warming each
-    mesh. ``cfgs`` = {"dense": ..., "moe": ...} (default: Llama-3-8B at
-    32 layers and :func:`serve_moe_config` of its 4-layer slice);
-    ``device="cpu"`` with small ones rehearses it on gloo."""
+    mesh. The passes with a worker share one worker process, which rank
+    0 spawns on the last card (``spawn_worker``; on the CPU, a CPU
+    worker) at the first of them, building the model from the seed, and
+    every other rank mirrors. ``cfgs`` = {"dense": ..., "moe": ...}
+    (default: Llama-3-8B at 32 layers and :func:`serve_moe_config` of its
+    4-layer slice); ``device="cpu"`` with small ones rehearses it on
+    gloo."""
     from horovod_tpu_torch.binding import broadcast_parameters
 
     os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
@@ -4674,9 +4801,10 @@ def router_mesh_world(rank, n, port, seed, device=None, dims=None,
     card = card_line() if cuda else "cpu"
     t_phase = time.perf_counter()
     recs, checks = {}, {}
+    worker = None
     try:
         for kind in ("dense", "moe"):
-            mine = [p for p in passes if p[2] == kind]
+            mine = [p for p in passes if p.kind == kind]
             if not mine:
                 continue
             cfg = cfgs[kind]
@@ -4688,52 +4816,87 @@ def router_mesh_world(rank, n, port, seed, device=None, dims=None,
             scs = {True: fleet_serve_cfg(dims, trace),
                    False: fleet_serve_cfg(dims, trace, prefix_caching=False)}
             refs = {}
-            for _, _, _, knobs, cache, ref, _ in mine:
-                if ref is not None and ref not in refs:
-                    rec = fleet_pass(ref, cfg, trace, scs[cache],
-                                     params=full, seed=seed, **knobs)
+            for p in mine:
+                if p.ref is not None and p.ref not in refs:
+                    rec = fleet_pass(p.ref, cfg, trace, scs[p.cache],
+                                     params=full, seed=seed, **p.knobs)
                     rec.pop("_router")
-                    refs[ref] = rec["_log"]
+                    refs[p.ref] = (rec["_log"], rec["_streams"])
             say(f"  {kind}: parameters and one-card references "
                 f"({sorted(refs)}) in {time.perf_counter() - t0:.1f} s")
             at = None
-            for name, axes, _, knobs, cache, ref, skew in mine:
-                if axes != at:
+            for p in mine:
+                if p.axes != at:
                     params = None
                     gc.collect()
-                    mesh = build_mesh(**axes)
+                    mesh = build_mesh(**p.axes)
                     params = ttr.shard_params(full, cfg, mesh, serving=True)
-                    warm = fleet_pass(f"warm-up {axes}", cfg, trace[:4],
+                    warm = fleet_pass(f"warm-up {p.axes}", cfg, trace[:4],
                                       scs[True], params=params, mesh=mesh,
                                       placement="round_robin", seed=seed)
                     warm.pop("_router")
-                    checks[f"warm-up {axes} resolved"] = warm["resolved_once"]
-                    at = axes
+                    checks[f"warm-up {p.axes} resolved"] = (
+                        warm["resolved_once"])
+                    at = p.axes
+                if p.workers and worker is None:
+                    t1 = time.perf_counter()
+                    worker = srpc.MirrorHandle()
+                    if rank == 0:
+                        worker = srpc.spawn_worker(
+                            device=f"cuda:{n - 1}" if cuda else "cpu",
+                            env=None if cuda else {"OMP_NUM_THREADS": "1"})
+                    warm = fleet_pass("warm-up with the worker", cfg,
+                                      trace[:4], scs[True], params=params,
+                                      mesh=mesh, workers=[None, worker],
+                                      placement="round_robin", seed=seed)
+                    warm.pop("_router")
+                    checks["warm-up with the worker resolved"] = (
+                        warm["resolved_once"])
+                    say(f"  a worker process spawned on "
+                        f"{f'cuda:{n - 1}' if cuda else 'the CPU'} and "
+                        f"warmed up in {time.perf_counter() - t1:.1f} s")
                 t1 = time.perf_counter()
                 rec, c = router_mesh_pass(
-                    name, cfg, trace, scs[cache], full, params, mesh, knobs,
-                    seed, ref_log=refs.get(ref), skew=skew)
-                rec["axes"] = axes
-                recs[name] = rec
+                    p, cfg, trace, scs[p.cache], full, params, mesh, seed,
+                    ref=refs.get(p.ref), worker=worker,
+                    kill_after=dims["kill_after"])
+                if p.kill:
+                    worker = None
+                rec["axes"] = p.axes
+                recs[p.name] = rec
                 for k, v in c.items():
-                    checks[f"{name} {k}"] = v
+                    checks[f"{p.name} {k}"] = v
                 mib = 2 ** 30
                 n_t, agree, worst, share, _ = rec["teacher_forced"]
-                say(f"  ({name}) {axes} {kind}: {rec['tokens']} tokens in "
-                    f"{rec['seconds']:.3f} s = {rec['tokens_per_sec']:.1f} "
-                    f"tokens/s; first token p50 {rec['p50_first_token_ms']} "
-                    f"/ p99 {rec['p99_first_token_ms']} ms; per token p50 "
+                say(f"  ({p.name}) {p.axes} {kind}: {rec['tokens']} tokens "
+                    f"in {rec['seconds']:.3f} s = "
+                    f"{rec['tokens_per_sec']:.1f} tokens/s; first token p50 "
+                    f"{rec['p50_first_token_ms']} / p99 "
+                    f"{rec['p99_first_token_ms']} ms; per token p50 "
                     f"{rec['p50_per_token_ms']} / p99 "
                     f"{rec['p99_per_token_ms']} ms; prefix hit rate "
                     f"{rec['prefix_hit_rate']}; handoffs {rec['handoffs']}, "
-                    f"bytes per rank {rec['migration_bytes_per_rank']}, p50 "
-                    f"{rec['p50_migration_ms']} ms; expired {rec['expired']}; "
-                    f"{rec['steps']} router steps; flash launches "
-                    f"{rec['router_flash_launches']}; teacher-forced "
-                    f"{agree}/{n_t} argmax, worst gap {worst:.4f} "
-                    f"({share:.2f} of its tolerance); peak memory per rank "
+                    f"bytes per rank {rec['migration_bytes_per_rank']} ("
+                    f"{rec['migration_bytes'] // max(rec['handoffs'], 1)} "
+                    f"a move), p50 {rec['p50_migration_ms']} ms; expired "
+                    f"{rec['expired']}; deaths {rec['worker_deaths']}, "
+                    f"requeued {rec['requeued']}; {rec['steps']} router "
+                    f"steps, mirror broadcasts a step "
+                    f"{rec['mirror_broadcasts_per_step']:.2f}; flash "
+                    f"launches {rec['router_flash_launches']} here"
+                    + "".join(f", {w['flash_launches']} in worker {i} over "
+                              f"{w['monolithic_prefills']} monolithic "
+                              f"prefills (peak "
+                              f"{w['peak_mem_bytes'] / mib:.2f} GiB)"
+                              for i, w in rec["workers"].items())
+                    + f"; teacher-forced {agree}/{n_t} argmax, worst gap "
+                    f"{worst:.4f} ({share:.2f} of its tolerance); peak "
+                    f"memory per rank "
                     f"{[round(x / mib, 2) for x in rec['peak_mem_bytes_per_rank']]}"
                     f" GiB; {card}")
+                if "worker_streams_bitwise_one_card" in rec:
+                    say(f"    the worker's streams bitwise the one-card "
+                        f"router's: {rec['worker_streams_bitwise_one_card']}")
                 say(f"    checks: {c}; "
                     f"{time.perf_counter() - t1:.1f} s")
             del full, params
@@ -4751,6 +4914,8 @@ def router_mesh_world(rank, n, port, seed, device=None, dims=None,
         if bad:
             raise AssertionError(f"phase 19 failed: {bad}")
     finally:
+        if worker is not None:
+            worker.kill()
         dist.destroy_process_group()
     return summary
 
@@ -4759,8 +4924,10 @@ def run_phase19(seed, cards):
     """Phase 19 on ``cards`` (four) cards, one process a card."""
     log(f"phase 19: the fleet on a mesh (ServeRouter(mesh=), every rank "
         f"running the router in lockstep): Llama-3-8B at 32 layers on tp=4 "
-        f"(affinity, random, a split fleet, skewed clocks) and dp=2 x tp=2, "
-        f"the MoE configuration on ep=4, on NCCL ({cards} cards)")
+        f"(affinity, random, a split fleet, skewed clocks; beside a worker "
+        f"process on card {cards - 1}: affinity, splits both ways, a "
+        f"SIGKILL) and dp=2 x tp=2, the MoE configuration on ep=4, on NCCL "
+        f"({cards} cards)")
     gc.collect()
     mp.spawn(router_mesh_world, args=(cards, free_port(), seed),
              nprocs=cards, join=True)
@@ -5293,7 +5460,9 @@ def main(argv=None) -> int:
         "phase 14 serving": (serve["flash_fwd_launches"]
                              + serve["pair_flash_fwd_launches"]),
         "phase 18 fleet": fleet_launches,
-        "phase 18 (W4) fleet on a world-1 mesh": fleet_mesh_launches}
+        "phase 18 (W4) fleet on a world-1 mesh": fleet_mesh_launches["W4"],
+        "phase 18 (W5) world-1 mesh fleet with a worker process":
+            fleet_mesh_launches["W5"]}
     stamp()
 
     launches = run_phase16a(cfg, args.seed, slice_ms)

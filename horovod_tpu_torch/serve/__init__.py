@@ -50,6 +50,14 @@ a ``ServeEngine(mesh=)`` over that mesh, and the router reads mesh rank
     router = serve.ServeRouter(cfg, shards, serve.RouterConfig(
         n_replicas=2), serve.ServeConfig(max_batch=8), mesh=mesh)
 
+Worker replicas join a mesh fleet through mesh rank 0, which holds each
+worker's connection; every other rank passes a placeholder and mirrors
+rank 0's calls::
+
+    worker = (serve.spawn_worker() if dist.get_rank() == 0
+              else serve.MirrorHandle())
+    router.add_remote_replica(worker)
+
 A monolithic prefill attends through the Hopper flash kernel
 (``csrc/flash_fwd.cu``), in every replica; the paged attention of the
 other programs is torch ops, as it is XLA outside any Pallas kernel in
@@ -94,6 +102,8 @@ from horovod_tpu_torch.serve.router import (  # noqa: F401
 )
 from horovod_tpu_torch.serve.rpc import (  # noqa: F401
     RPC_PROTOCOL_VERSION,
+    LockstepConn,
+    MirrorHandle,
     RemoteReplica,
     RpcConn,
     RpcConnectionError,

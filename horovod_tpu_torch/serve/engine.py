@@ -44,8 +44,10 @@ of the submissions, the tokens (equal on every rank) and the clock, so
 each step reads the clock once and takes mesh rank 0's reading
 (:meth:`ServeEngine._now`, or the reading a mesh router hands
 :meth:`ServeEngine.step`); deadlines therefore expire alike on every
-rank. A dp axis holds replicas that serve the same stream, as GSPMD
-replicates the reference's unsharded batch.
+rank. A submit and a completed prefill stamp the request with mesh rank
+0's reading too (:func:`lockstep_now`), so every rank returns the same
+:class:`RequestResult`. A dp axis holds replicas that serve the same
+stream, as GSPMD replicates the reference's unsharded batch.
 """
 
 from __future__ import annotations
@@ -324,6 +326,19 @@ def check_shards(model_cfg, params, mesh) -> None:
                 f"params, cfg, mesh, serving=True)")
 
 
+def lockstep_now(clock, group=None, device=None) -> float:
+    """A reading of ``clock``: this process's, or with ``group`` (the
+    group a mesh steps in lockstep over) the reading of the group's
+    first rank, broadcast as one f64 on ``device``. Every rank of the
+    group calls it alike (a collective), and then expires, stamps and
+    times alike."""
+    now = clock()
+    if group is None:
+        return now
+    t = torch.tensor([now], dtype=torch.float64, device=device)
+    return collectives.broadcast(t, 0, group).item()
+
+
 def _ints(values, n: int) -> torch.Tensor:
     """``values`` in an int32 row of length ``n``, zero-padded."""
     out = torch.zeros(n, dtype=torch.int32)
@@ -479,7 +494,7 @@ class ServeEngine:
                   if chain is None else chain)
                  if self.cfg.prefix_caching else [])
         self._queue.append(_Queued(rid, prompt, max_new, deadline,
-                                   self._clock(), chain,
+                                   self._now(), chain,
                                    deadline_class=deadline_class,
                                    prefill_only=prefill_only,
                                    trace=trace_id))
@@ -547,15 +562,12 @@ class ServeEngine:
     # -- the scheduler iteration ------------------------------------
 
     def _now(self) -> float:
-        """The step's clock reading: this engine's clock, or on a mesh
-        the first rank's, broadcast (one f64 a step), so that deadlines
-        expire alike on every rank and the ranks call the same
-        programs."""
-        now = self._clock()
-        if self._lockstep is None:
-            return now
-        t = torch.tensor([now], dtype=torch.float64, device=self.device)
-        return collectives.broadcast(t, 0, self._lockstep).item()
+        """A clock reading to step on or stamp a result with: this
+        engine's clock, or on a mesh the first rank's, broadcast (one
+        f64 a read), so that deadlines expire alike on every rank, the
+        ranks call the same programs and every result carries the same
+        times."""
+        return lockstep_now(self._clock, self._lockstep, self.device)
 
     def step(self, now: Optional[float] = None) -> None:
         """One iteration: retire → expire → admit → prefill chunk(s)
@@ -770,7 +782,7 @@ class ServeEngine:
         return chunk
 
     def _complete_prefill(self, seq: _Seq) -> None:
-        now = self._clock()
+        now = self._now()
         seq.generated.append(seq.last_prefill_tok)
         seq.first_token_at = now
         self.metrics.record_first_token(now - seq.submitted_at)

@@ -25,13 +25,17 @@ is the plain least-load pick.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from horovod_tpu_torch.ops import collectives
+from horovod_tpu_torch.parallel.mesh import axis_index, tp_group
 from horovod_tpu_torch.serve.kv_cache import pool_kv_heads
 
 #: The sane-env knob: ``auto`` (default) dials the direct channel and
@@ -164,6 +168,55 @@ def page_nbytes(model_cfg, block_size: int, mesh=None) -> int:
     return int(2 * model_cfg.n_layers * block_size
                * pool_kv_heads(model_cfg, mesh) * model_cfg.head_dim
                * itemsize)
+
+
+def kv_head_slice(model_cfg, mesh=None) -> slice:
+    """The KV heads of this rank's pool among a whole page's
+    ``n_kv_heads``: the tp coordinate's run of
+    :func:`~horovod_tpu_torch.serve.kv_cache.pool_kv_heads`, or every
+    head where the pool holds them all."""
+    n = pool_kv_heads(model_cfg, mesh)
+    if n == model_cfg.n_kv_heads:
+        return slice(None)
+    t = axis_index(mesh, "tp")
+    return slice(t * n, (t + 1) * n)
+
+
+def broadcast_pages(h, group, device):
+    """Handoff ``h`` with the pages of the first rank of ``group`` on
+    every rank of it: K and V stacked into one tensor on ``device``, one
+    broadcast (the other ranks' ``h`` need only the pages' shape and
+    dtype). ``h`` itself where ``group`` is None."""
+    if group is None:
+        return h
+    shape = (2,) + tuple(h.k_pages.shape)
+    if dist.get_rank(group) == 0:
+        buf = torch.stack([h.k_pages, h.v_pages]).to(device)
+    else:
+        buf = torch.empty(shape, dtype=h.k_pages.dtype, device=device)
+    dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+    return dataclasses.replace(h, k_pages=buf[0], v_pages=buf[1])
+
+
+def slice_pages(h, model_cfg, mesh=None):
+    """Handoff ``h`` of whole pages (every KV head: a worker's) cut to
+    this rank's pool on ``mesh`` (:func:`kv_head_slice`), bitwise."""
+    s = kv_head_slice(model_cfg, mesh)
+    return dataclasses.replace(
+        h, k_pages=h.k_pages[:, :, :, s].contiguous(),
+        v_pages=h.v_pages[:, :, :, s].contiguous())
+
+
+def gather_pages(h, model_cfg, mesh, device):
+    """Handoff ``h`` of this rank's KV heads (a mesh replica's export)
+    made whole: the tp ranks' heads all-gathered in tp order (one
+    all-gather of K and V stacked, on ``device``). ``h`` itself where
+    the pool holds every head. Every rank of the tp axis calls it."""
+    if kv_head_slice(model_cfg, mesh) == slice(None):
+        return h
+    buf = torch.stack([h.k_pages, h.v_pages]).to(device)
+    full = collectives.allgather(buf, tp_group(mesh), axis=4)
+    return dataclasses.replace(h, k_pages=full[0], v_pages=full[1])
 
 
 def chunk_menu(n_pages: int) -> List[int]:

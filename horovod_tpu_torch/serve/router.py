@@ -57,21 +57,33 @@ again), and the topology model a page move is scored on is rank 0's,
 broadcast once a step. A handoff moves each rank's KV heads into the
 same rank's pool of the target replica. Rank 0 writes the router's
 trace file, and every rank its replicas' under its own rank's name.
-Worker replicas stay meshless, as in the reference, and are not yet
-allowed beside a mesh fleet (:data:`MESH_WORKERS_TODO`).
+
+Worker replicas stay meshless beside a mesh fleet, as in the reference,
+and a worker speaks one connection, so mesh rank 0 alone holds it: rank
+0 passes the worker's handle where every other rank passes an
+``rpc.MirrorHandle()``, and each of those ranks runs a mirror of the
+replica whose every call returns rank 0's outcome, broadcast as one
+object a call (:class:`~horovod_tpu_torch.serve.rpc.LockstepConn`): the
+reply, or the failure every rank then raises alike, so a worker's
+death requeues alike on every rank. A worker's pages carry every KV
+head: a handoff from a worker goes to every rank as one broadcast of
+rank 0's pages, of which each rank injects its heads; one to a worker
+gathers the tp ranks' heads into whole pages, which rank 0 sends. Such a
+move counts the whole pages (what crosses the worker's wire). Rank 0
+alone writes a worker's trace file.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import itertools
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common import basics
@@ -83,21 +95,13 @@ from horovod_tpu_torch.parallel.mesh import AXES, axes_group
 from horovod_tpu_torch.serve import migrate as migrate_mod
 from horovod_tpu_torch.serve.engine import (
     QueueFull, RequestResult, RetireEma, ServeConfig, ServeEngine,
-    check_serve_mesh, validate_request,
+    check_serve_mesh, lockstep_now, validate_request,
 )
 from horovod_tpu_torch.serve.kv_cache import hash_chain
 from horovod_tpu_torch.serve.metrics import MAX_SAMPLES, percentile
 from horovod_tpu_torch.serve.rpc import (RemoteReplica, RpcConnectionError,
-                                         span_codec_id)
+                                         lockstep_handle, span_codec_id)
 from horovod_tpu_torch.serve.trace import RouterTrace, mint_trace_id
-
-#: What a worker replica beside a mesh fleet raises with.
-MESH_WORKERS_TODO = (
-    "worker replicas beside a mesh fleet are ROADMAP Queue 1 item 20: only "
-    "mesh rank 0 may hold a worker's connection, so every other rank needs "
-    "a mirror of the replica that returns rank 0's reply to each call; "
-    "build the mesh fleet of in-process replicas, or the worker fleet "
-    "without mesh=")
 
 #: The topology model not yet read this step (a mesh router reads it
 #: once a step).
@@ -175,7 +179,9 @@ class RouterConfig:
     # SO_RCVTIMEO/SO_SNDTIMEO on worker connections: a worker that
     # stops answering for this long is declared dead (requeue +
     # failover). Generous default — the first step against a fresh
-    # worker builds its kernel and warms its programs.
+    # worker builds its kernel and warms its programs. Beside a mesh,
+    # keep it under the mesh group's collective timeout: the other
+    # ranks wait in a broadcast while rank 0 waits on the worker.
     rpc_timeout: float = 300.0
     # Direct worker<->worker page migration (serve/migrate.py): "env" defers to HOROVOD_FLEET_DIRECT_MIGRATION
     # (auto|off), or force it per-fleet — "off" is the relayed
@@ -477,7 +483,9 @@ class ServeRouter:
     ``remove_replica``, ``export_fleet_trace`` ...) and so steps every
     replica in lockstep, as one ``ServeEngine(mesh=)`` a process does;
     a rank that submits something else hangs the mesh. Deadlines are
-    read on mesh rank 0's clock (:meth:`now`).
+    read on mesh rank 0's clock (:meth:`now`). Beside the mesh
+    replicas, worker replicas take mesh rank 0's handles there and an
+    ``rpc.MirrorHandle()`` for each on every other rank.
     """
 
     def __init__(self, model_cfg, params,
@@ -498,10 +506,11 @@ class ServeRouter:
         (default: the device of ``params``). ``mesh`` (a tp/ep/dp
         mesh, as ``ServeEngine(mesh=)`` takes) shards every in-process
         replica over it; ``params`` are then this rank's shards, and
-        ``workers`` raise ``NotImplementedError``
-        (:data:`MESH_WORKERS_TODO`)."""
-        if mesh is not None and workers:
-            raise NotImplementedError(MESH_WORKERS_TODO)
+        mesh rank 0 passes the ``workers`` handles where every other
+        rank passes ``rpc.MirrorHandle()`` for each (the group's
+        collective timeout must exceed ``RouterConfig.rpc_timeout``: the
+        other ranks wait on rank 0's calls). A ``None`` in ``workers``
+        is an in-process replica."""
         self.cfg = router_cfg or RouterConfig()
         self._model_cfg = model_cfg
         self._params = params
@@ -523,7 +532,8 @@ class ServeRouter:
                 self._lockstep = group
         self._raw_clock = clock
         self._clock = (clock if self._lockstep is None
-                       else self._broadcast_clock)
+                       else functools.partial(lockstep_now, clock,
+                                              self._lockstep, self._device))
         # Registered model groups; the constructor args define the
         # DEFAULT_MODEL group, add_model() registers more (draft/target
         # pairs, A/B fleets, per-tenant models as ordinary members).
@@ -582,14 +592,6 @@ class ServeRouter:
 
     # -- the mesh's lockstep ------------------------------------------
 
-    def _broadcast_clock(self) -> float:
-        """Mesh rank 0's reading of the router's clock, broadcast over
-        the lockstep group as one f64: every rank then expires,
-        stamps and times alike."""
-        t = torch.tensor([self._raw_clock()], dtype=torch.float64,
-                         device=self._device)
-        return collectives.broadcast(t, 0, self._lockstep).item()
-
     def now(self) -> float:
         """The router's clock: on a mesh, rank 0's reading (a
         collective: every rank calls it alike). Deadlines passed to
@@ -612,8 +614,6 @@ class ServeRouter:
 
     def _add_replica(self, role: str, worker: Any = None,
                      model: str = DEFAULT_MODEL) -> _Replica:
-        if worker is not None and self._mesh is not None:
-            raise NotImplementedError(MESH_WORKERS_TODO)
         group = self._models[model]
         inst = str(next(self._next_instance))
         # Router-facing id (`inst`) is per-router and deterministic —
@@ -623,6 +623,9 @@ class ServeRouter:
         # samples into one scrape.
         label = f"{self.metrics.fleet}.{inst}"
         if worker is not None:
+            if self._lockstep is not None:
+                # Rank 0's connection, mirrored on every other rank.
+                worker = lockstep_handle(worker, self._lockstep)
             worker.conn.codec = span_codec_id(self.cfg.handoff_compression)
             worker.conn.set_timeout(self.cfg.rpc_timeout)
             eng = RemoteReplica(worker, group.model_cfg,
@@ -1268,13 +1271,20 @@ class ServeRouter:
         topo = self._topology()
         n_ranks = int(topo["np"]) if topo else 0
         return migrate_mod.plan_migration(
-            need_blocks,
-            migrate_mod.page_nbytes(
-                self._models[src.model].model_cfg,
-                src.engine.allocator.block_size, mesh=self._mesh),
+            need_blocks, self._page_nbytes(src, target),
             src=migrate_mod.replica_rank(src.instance, n_ranks),
             dst=migrate_mod.replica_rank(target.instance, n_ranks),
             codec=self.cfg.handoff_compression, model=topo)
+
+    def _page_nbytes(self, src: _Replica, dst: _Replica) -> int:
+        """Bytes of one K+V page pair a move from ``src`` to ``dst``
+        counts: a rank's KV heads between two replicas of this mesh, a
+        whole page where a worker is an end (what crosses its wire), so
+        that every rank counts the same bytes."""
+        mesh = None if src.remote or dst.remote else self._mesh
+        return migrate_mod.page_nbytes(self._models[src.model].model_cfg,
+                                       src.engine.allocator.block_size,
+                                       mesh=mesh)
 
     def _note_migration(self, rid: int, target: _Replica,
                         cost_us: float, wire_bytes: int,
@@ -1348,6 +1358,20 @@ class ServeRouter:
         if h is None:
             return False
         del src.outstanding[erid]
+        # Between a worker (every KV head) and a mesh replica (this
+        # rank's): rank 0's pages from the worker go to every rank and
+        # each injects its heads; the other way the tp ranks' heads are
+        # gathered into whole pages for rank 0 to send.
+        wire = h
+        if self._mesh is not None and src.remote and not target.remote:
+            wire = migrate_mod.broadcast_pages(h, self._lockstep,
+                                               self._device)
+            h = migrate_mod.slice_pages(
+                wire, self._models[src.model].model_cfg, self._mesh)
+        elif self._mesh is not None and target.remote and not src.remote:
+            h = wire = migrate_mod.gather_pages(
+                h, self._models[src.model].model_cfg, self._mesh,
+                self._device)
         new_erid = self._guard(target,
                                lambda: target.engine.inject_prefilled(h))
         if new_erid is None:
@@ -1358,11 +1382,12 @@ class ServeRouter:
         # Relayed accounting: the pages crossed the router, raw (span
         # codec applies per hop on remote ends; nbytes here is the
         # router-held copy — one traversal's worth for parity with
-        # the direct counter).
+        # the direct counter; whole pages where a worker is an end).
         self._note_migration(
             rid, target, cost_us=plan["cost_us"],
-            wire_bytes=int(h.k_pages.numel() * h.k_pages.element_size()
-                           + h.v_pages.numel() * h.v_pages.element_size()),
+            wire_bytes=int(
+                wire.k_pages.numel() * wire.k_pages.element_size()
+                + wire.v_pages.numel() * wire.v_pages.element_size()),
             ms=(self._clock() - t0) * 1e3)
         self._trace_handoff(rid, src, target, kind, t0)
         return True
@@ -1398,15 +1423,6 @@ class ServeRouter:
         n_ranks = int(topo["np"]) if topo else 0
         src_rank = (migrate_mod.replica_rank(source.instance, n_ranks)
                     if source is not None else 0)
-        xfer_bytes = 0
-        if topo is not None:
-            xfer_bytes = int(
-                need_blocks
-                * migrate_mod.page_nbytes(
-                    self._models[model].model_cfg,
-                    source.engine.allocator.block_size, mesh=self._mesh)
-                * migrate_mod.codec_wire_ratio(
-                    self.cfg.handoff_compression))
         cands = []
         for r in list(self._replicas):
             if (r.model != model or r.role not in pool_role
@@ -1415,6 +1431,10 @@ class ServeRouter:
             snap = self._guard(r, r.engine.admission_snapshot)
             if (snap is not None and snap["batch_slots_free"] > 0
                     and r.engine.allocator.can_alloc(need_blocks)):
+                xfer_bytes = 0 if topo is None else int(
+                    need_blocks * self._page_nbytes(source, r)
+                    * migrate_mod.codec_wire_ratio(
+                        self.cfg.handoff_compression))
                 cost = migrate_mod.link_cost_us(
                     topo, src_rank,
                     migrate_mod.replica_rank(r.instance, n_ranks),
@@ -1596,9 +1616,9 @@ class ServeRouter:
         offset sample yet get one forced heartbeat first (a fleet
         that never idled may never have swept them). On a mesh
         (every rank calls it alike) mesh rank 0 writes ``router.json``
-        and each rank its replicas' spans as
-        ``replica-<instance>-rank<global rank>.json``, so no file is
-        written twice."""
+        and each worker's file, and each rank its in-process
+        replicas' spans as ``replica-<instance>-rank<global
+        rank>.json``, so no file is written twice."""
         import json as _json
         os.makedirs(dir_path, exist_ok=True)
         paths = []
@@ -1608,7 +1628,8 @@ class ServeRouter:
         suffix = ""
         if self._mesh is not None:
             suffix = f"-rank{dist.get_rank()}"
-        if self._lockstep is None or dist.get_rank(self._lockstep) == 0:
+        root = self._lockstep is None or dist.get_rank(self._lockstep) == 0
+        if root:
             p = os.path.join(dir_path, "router.json")
             self.trace.export(p, metadata=meta)
             paths.append(p)
@@ -1620,9 +1641,12 @@ class ServeRouter:
                     self._guard(rep, rep.engine.heartbeat)
                     if rep not in self._replicas:
                         continue   # died on the forced beat
+                # Every rank makes the call (a mirror's is a
+                # collective); the one worker's file is rank 0's.
                 d = self._guard(rep, rep.engine.export_trace)
-                if d is None:
+                if d is None or not root:
                     continue
+                p = os.path.join(dir_path, f"replica-{rep.instance}.json")
                 with open(p, "w") as f:
                     _json.dump({"traceEvents": d["events"],
                                 "displayTimeUnit": "ms",

@@ -1067,3 +1067,160 @@ class RemoteReplica:
 
     def shutdown(self) -> None:
         self._handle.close()
+
+
+# ---------------------------------------------------------------------------
+# A worker beside a mesh: mesh rank 0's connection, mirrored on the others
+# ---------------------------------------------------------------------------
+
+class MirrorHandle:
+    """What a mesh rank other than 0 passes where mesh rank 0 passes a
+    worker's handle (``ServeRouter(mesh=, workers=)``,
+    ``add_model(workers=)``, ``add_remote_replica``): the rank holds no
+    connection, and the router builds a mirror of the replica on it.
+    ``kill`` and ``close`` do nothing: the worker is rank 0's."""
+
+    conn = None
+    proc = None
+    port = 0
+    host = ""
+
+    def kill(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _to_meta(obj):
+    """``obj`` with every tensor replaced by a ``meta`` tensor of its
+    shape and dtype (no data)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to("meta")
+    if isinstance(obj, list):
+        return [_to_meta(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _to_meta(v) for k, v in obj.items()}
+    return obj
+
+
+class LockstepConn:
+    """A worker's connection as every rank of a lockstep mesh group sees
+    it. Mesh rank 0 (``conn``) makes each call on the worker's real
+    :class:`RpcConn`; then every rank returns rank 0's outcome,
+    broadcast over ``group`` as one object a call: the reply; a
+    transport failure, on which every rank closes its side and raises
+    :class:`RpcConnectionError`; or another error, which every rank
+    raises as rebuilt from its wire form. The tensors of a reply (a
+    handoff's pages) stay out of that object: the other ranks get
+    ``meta`` tensors of their shape and dtype, and the router moves the
+    pages it needs over the group itself. A failed :meth:`call_begin`
+    is kept for its :meth:`call_finish`, so every rank meets the failure
+    at the same call. No rank other than 0 touches a socket."""
+
+    #: Objects broadcast by every instance in this process (the chip
+    #: run reports them a router step).
+    broadcasts = 0
+
+    def __init__(self, conn: Optional[RpcConn], group):
+        self._conn = conn
+        self._group = group
+        self._codec = 0
+        self._begun = None
+        self.alive = True
+
+    @property
+    def codec(self) -> int:
+        return self._conn.codec if self._conn is not None else self._codec
+
+    @codec.setter
+    def codec(self, value) -> None:
+        if self._conn is not None:
+            self._conn.codec = value
+        self._codec = value
+
+    @property
+    def trace_id(self) -> int:
+        return self._conn.trace_id if self._conn is not None else 0
+
+    @trace_id.setter
+    def trace_id(self, value) -> None:
+        if self._conn is not None:
+            self._conn.trace_id = value
+
+    def set_timeout(self, timeout: Optional[float]) -> None:
+        if self._conn is not None:
+            self._conn.set_timeout(timeout)
+
+    def close(self) -> None:
+        self.alive = False
+        if self._conn is not None:
+            self._conn.close()
+
+    @staticmethod
+    def _outcome(fn):
+        try:
+            return ("ret", fn(), None)
+        except RpcConnectionError as e:
+            return ("dead", str(e), e)
+        except Exception as e:   # noqa: BLE001 — every rank raises it
+            return ("err", _exception_to_wire(e), e)
+
+    def _share(self, out):
+        """Broadcast rank 0's outcome ``out``; return the reply or raise
+        the failure on every rank."""
+        from horovod_tpu_torch.functions import broadcast_object
+
+        payload = None
+        if out is not None:
+            kind, value, _ = out
+            payload = (kind, _to_meta(value) if kind == "ret" else value)
+        kind, value = broadcast_object(payload, 0, self._group)
+        LockstepConn.broadcasts += 1
+        cause = None if out is None else out[2]
+        if kind == "ret":
+            return value if out is None else out[1]
+        if kind == "dead":
+            self.close()
+            raise RpcConnectionError(value) from cause
+        raise _rebuild_exception(value) from cause
+
+    def call(self, method: str, *args, **kwargs):
+        out = None
+        if self._conn is not None:
+            out = self._outcome(
+                lambda: self._conn.call(method, *args, **kwargs))
+        return self._share(out)
+
+    def call_begin(self, method: str, *args, **kwargs) -> None:
+        if self._conn is not None:
+            self._begun = self._outcome(
+                lambda: self._conn.call_begin(method, *args, **kwargs))
+
+    def call_finish(self):
+        out = None
+        if self._conn is not None:
+            out, self._begun = self._begun, None
+            if out is None or out[0] == "ret":
+                out = self._outcome(self._conn.call_finish)
+        return self._share(out)
+
+
+def lockstep_handle(handle, group) -> WorkerHandle:
+    """The handle a worker replica beside a mesh is built on: on mesh
+    rank 0 of ``group`` (the mesh's lockstep group) ``handle`` is the
+    worker's own (``spawn_worker``/``connect_worker``), elsewhere a
+    :class:`MirrorHandle`; either way the returned handle's connection
+    is a :class:`LockstepConn`."""
+    import torch.distributed as dist
+
+    root = dist.get_rank(group) == 0
+    if root == isinstance(handle, MirrorHandle):
+        raise ValueError(
+            "beside a mesh, mesh rank 0 passes each worker's handle and "
+            f"every other rank a MirrorHandle (rank {dist.get_rank()} "
+            f"passed {type(handle).__name__})")
+    return WorkerHandle(conn=LockstepConn(handle.conn if root else None,
+                                          group),
+                        proc=handle.proc, port=handle.port,
+                        host=handle.host)

@@ -499,7 +499,10 @@ def test_bench_prints_the_reference_primary_line(monkeypatch):
     assert list(line) == ["metric", "value", "unit", "vs_baseline", "extra"]
     assert line["metric"] == "resnet50_images_per_sec_per_chip"
     assert line["unit"] == "images/sec" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / 207.0, 3)
+    # The bench's and the reference's formula: the unrounded rate over
+    # the baseline (the rounded value can round to another third place).
+    assert line["vs_baseline"] == round(r50["images_per_sec_per_gpu"] / 207.0,
+                                        3)
     assert set(line["extra"]) == {"transformer_std_tokens_per_sec_per_chip",
                                   "transformer_tokens_per_sec_per_chip"}
 

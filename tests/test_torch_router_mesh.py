@@ -16,23 +16,25 @@ tokens and the placement log equal on every rank and equal to JAX's:
 - (e) the port of ``tests/test_router.py::_drive_property_run`` (seed 7)
   on tp=2: joins, drains, ``remove_replica`` and shedding, every request
   resolved exactly once;
-- (f) clocks skewed by 50 s per rank, with deadlines and shedding: the
-  same requests expire and are shed on every rank (rank 0's clock), and
-  the world does not hang;
+- (f) clocks skewed by 50 s per rank, with deadlines, shedding and a
+  one-token request: the same requests expire and are shed on every rank
+  (rank 0's clock), every ``RequestResult`` field is equal on every rank,
+  and the world does not hang;
 - (g) ``fleet_topology`` a different model on each rank: page moves go
   where rank 0's model sends them;
 - (h) ``export_fleet_trace`` on tp=2: rank 0 writes ``router.json``,
   each rank its replicas' files under its rank, no file twice, and
-  ``trace_merge merge`` reads the directory onto one timebase;
-- (i) a worker replica beside a mesh fleet raises the
-  ``NotImplementedError`` that names ROADMAP item 20, in the constructor,
-  ``add_model`` and ``add_remote_replica``.
+  ``trace_merge merge`` reads the directory onto one timebase.
+
+Worker replicas beside a mesh fleet are held in
+``tests/test_torch_router_mesh_workers.py``.
 
 Workers run this file as a script (``--worker``) and load torch, numpy
 and the port only.
 """
 
 import concurrent.futures
+import dataclasses
 import os
 import pickle
 import sys
@@ -209,20 +211,26 @@ def _property_run(ns, seed):
 #: The skew case's submissions: (deadline on rank 0's clock, class).
 SKEW_PLAN = ((None, 0), (103.5, 1), (None, 2), (100.5, 0), (None, 2),
              (101.5, 1), (102.5, 0), (None, 0))
+#: The skew case's one-token request (its first token finishes it), by
+#: its index in ``SKEW_PLAN``.
+SKEW_ONE_TOKEN = 7
 
 
 def _skew_run(ns, clock):
     """Eight requests at once on a router queue of 4 over two replicas of
     max batch 1: arrivals shed the newest of a worse class (one is
     refused), one deadline expires in the router's queue and one in an
-    engine's. The clock advances by 1 before each step."""
+    engine's; the last asks for one token. The clock advances by 1
+    before each step. The port's run also returns every result's
+    fields."""
     router = ns.router(clock=clock, n_replicas=2, max_queue=4,
                        serve_kw={"max_batch": 1, "max_queue": 2})
     prompts = _tenant_prompts(n_per_tenant=4, n_tenants=2)
     rids, refused = [], 0
-    for p, (deadline, cls) in zip(prompts, SKEW_PLAN):
+    for i, (p, (deadline, cls)) in enumerate(zip(prompts, SKEW_PLAN)):
         try:
-            rids.append(router.submit(p, 4, deadline=deadline,
+            rids.append(router.submit(p, 1 if i == SKEW_ONE_TOKEN else 4,
+                                      deadline=deadline,
                                       deadline_class=cls))
         except ns.FleetSaturated:
             refused += 1
@@ -231,8 +239,11 @@ def _skew_run(ns, clock):
         clock.advance(1.0)
         router.step()
         steps += 1
-    return ([(r, _res(router.result(r))) for r in rids], refused,
-            list(router.placement_log), steps, _snap(router))
+    out = ([(r, _res(router.result(r))) for r in rids], refused,
+           list(router.placement_log), steps, _snap(router))
+    if ns.port:
+        out += ([dataclasses.astuple(router.result(r)) for r in rids],)
+    return out
 
 
 def _link_cost_drain(ns, model):
@@ -328,30 +339,6 @@ def _trace_export(d, tmp):
             router.export_fleet_trace(os.path.join(tmp, "fleet_trace"))]
 
 
-def _mesh_workers(d):
-    """(i): a worker handle beside the mesh, in each entry point."""
-    ns = _port_ns(d, "dense", {"tp": 2})
-    handle = object()   # never touched: the mesh check comes first
-    out = {}
-    from horovod_tpu_torch import serve
-    for where, call in (
-            ("constructor", lambda: serve.ServeRouter(
-                ns.cfg, ns.params, serve.RouterConfig(n_replicas=1),
-                serve.ServeConfig(**KW), mesh=ns.mesh, workers=[handle],
-                device="cpu")),
-            ("add_model", lambda: router.add_model(
-                "b", ns.cfg, None, workers=[handle])),
-            ("add_remote_replica",
-             lambda: router.add_remote_replica(handle))):
-        router = ns.router(n_replicas=1)
-        try:
-            call()
-            out[where] = None
-        except NotImplementedError as e:
-            out[where] = (str(e), router.replicas)
-    return out
-
-
 def _worker(store, out, data):
     import torch.distributed as dist
 
@@ -369,7 +356,6 @@ def _worker(store, out, data):
         res[case] = _scenario(case, _port_ns(d, model, axes), rank)
     if n == 2:
         res["h_trace"] = _trace_export(d, os.path.dirname(store))
-        res["i_workers"] = _mesh_workers(d)
     with open(out, "wb") as f:
         pickle.dump(res, f)
     # Every rank's results are written: end without the interpreter's
@@ -496,7 +482,9 @@ def test_property_run_resolves_each_request_once(port_results):
 
 
 def test_skewed_clocks_expire_and_shed_alike(port_results):
-    results, refused, _, steps, snap = _same_on_every_rank(
+    # Every field of every result, times included, is equal on every
+    # rank: the engines stamp on rank 0's clock, as the router does.
+    results, refused, _, steps, snap, fields = _same_on_every_rank(
         port_results[2], "f_skew")
     statuses = [r[0] for _, r in results]
     assert "expired" in statuses and "shed" in statuses and "ok" in statuses
@@ -508,6 +496,12 @@ def test_skewed_clocks_expire_and_shed_alike(port_results):
     # One expiry in the router's queue, one in an engine's (on the step
     # reading the router hands it).
     assert snap["expired_total"] >= 1 and snap["requests_expired"] >= 1
+    # The one-token request finished at its first token, on rank 0's
+    # clock (100 + whole steps), not a rank's own (skewed by 50 s).
+    one, = [f for f in fields if len(f[3]) == 1]
+    assert one[1] == "ok"
+    assert one[6] == one[7] and one[7] < 100.0 + SKEW
+    assert all(f[5] < 100.0 + SKEW for f in fields)
 
 
 def test_page_moves_follow_rank_zero_topology(port_results):
@@ -539,17 +533,6 @@ def test_fleet_trace_written_once_and_merged(port_results):
     assert len(tids) == 6
     row = trace_merge.critical_path(evs, tids[0])
     assert abs(sum(row["breakdown_us"].values()) - row["e2e_us"]) <= 1.0
-
-
-@pytest.mark.parametrize("where", ["constructor", "add_model",
-                                   "add_remote_replica"])
-def test_worker_beside_a_mesh_names_item_20(port_results, where):
-    for rank in port_results[2]:
-        got = rank["i_workers"][where]
-        assert got is not None, f"{where} did not raise"
-        msg, replicas = got
-        assert "item 20" in msg
-        assert replicas == ["0"]
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
