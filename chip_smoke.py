@@ -10,21 +10,25 @@ exits non-zero with no result line:
    versions. TF32 is switched off so f32 comparisons are f32.
 2. Build: every kernel source under ``horovod_tpu_torch/csrc`` (one
    nvcc per source, in parallel), with ptxas' register/spill report.
-   Fails if the bf16 flash kernel spills, or if ptxas ignored its
-   ``setmaxnreg`` (C7508) or serialised its ``wgmma``.
+   Fails if a bf16 flash kernel (the forward's, the backward's dK/dV
+   and dQ kernels) spills, or if ptxas ignored a ``setmaxnreg`` (C7508)
+   or serialised a ``wgmma``.
 3. Kernels against their plain PyTorch versions on the card, at the
    training shape, at the edge cases and at the config's longest
-   sequence (T=8192), within the kernel's stated tolerance; then the
-   kernel's time beside the plain version's, a library call's
-   (``scaled_dot_product_attention``, timed only) and the bound, at the
-   training shape and at T=8192.
+   sequence (T=8192), within the kernels' stated tolerances (the
+   backward also bitwise against a second launch); then each kernel's
+   time, forward and backward, beside the plain version's, a library
+   call's (``scaled_dot_product_attention`` and its backward, timed
+   only) and the bound, at the training shape and at T=8192.
 4. Model check: a small model through the kernel path and through the
    plain ``local`` attention path agree on loss and gradients.
 5. The slice: the train step at Llama-3-8B widths cut to 4 layers, bf16,
    B=4, T=2048, 3 warm-up + 5 timed AdamW steps on a fixed token batch.
    Launch counters are zeroed just before and read just after; every
-   loss must be finite and falling, and the flash kernel must have run
-   n_layers times per step.
+   loss must be finite and falling, and the flash kernels must have run
+   n_layers times per step, forward and backward (every phase below
+   that counts a training step's flash launches holds the backward's
+   count to the forward's: ``flash_launches``).
 6. Data parallel over NCCL: the same slice through the data-parallel
    train step (``make_train_step(mesh=...)``) on a real ``nccl`` world,
    one process per card (a world of 1 on a one-card machine; NCCL takes
@@ -374,6 +378,27 @@ def log(*args):
 card_line = bench.card_line
 
 
+def zero_flash_launches():
+    """Zero the flash forward's and backward's launch counters."""
+    tfa.flash_fwd_cuda.launches = 0
+    tfa.flash_bwd_cuda.launches = 0
+
+
+def flash_launches() -> int:
+    """The flash forward's launches since :func:`zero_flash_launches`,
+    or -1 (a count no check wants) where the backward kernel did not run
+    once for each of them: a training step differentiates every forward,
+    so n_layers forward launches a step mean n_layers backward launches.
+    Returns rather than raises, so a rank whose count is off still meets
+    its peers at the phase's collective check."""
+    fwd, bwd = tfa.flash_fwd_cuda.launches, tfa.flash_bwd_cuda.launches
+    if bwd != fwd:
+        log(f"  flash_bwd launches {bwd}, flash_fwd launches {fwd}: want "
+            f"one backward a forward")
+        return -1
+    return fwd
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls,
     between CUDA events, after ``warmup`` calls."""
@@ -390,20 +415,38 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, t, h, hkv, d, causal, itemsize, out_itemsize,
-                       flops_per_s):
-    """Least time for the forward: the larger of its operations at the
-    peak rate (two products, 2 FLOP per multiply-add, over the keys each
-    query row needs) and its bytes at the memory rate (q, k, v read
-    once; out and the f32 lse written once)."""
-    keys = t * (t + 1) // 2 if causal else t * t
-    flops = 4 * b * h * d * keys
-    nbytes = (b * t * (h + 2 * hkv) * d * itemsize
-              + b * t * h * d * out_itemsize + b * h * t * 4)
+def least_ms(flops, nbytes, flops_per_s):
+    """A kernel's least time on the card: the larger of its operations
+    at ``flops_per_s`` and its bytes at the memory rate. Returns (ms,
+    what bounds it, flops, bytes)."""
     ops_ms = flops / flops_per_s * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
+
+
+def attention_bound_ms(b, t, h, hkv, d, causal, itemsize, out_itemsize,
+                       flops_per_s):
+    """Least time for the forward: its operations (two products, 2 FLOP
+    per multiply-add, over the keys each query row needs) and its bytes
+    (q, k, v read once; out and the f32 lse written once)."""
+    keys = t * (t + 1) // 2 if causal else t * t
+    return least_ms(4 * b * h * d * keys,
+                    b * t * (h + 2 * hkv) * d * itemsize
+                    + b * t * h * d * out_itemsize + b * h * t * 4,
+                    flops_per_s)
+
+
+def attention_bwd_bound_ms(b, t, h, hkv, d, causal, itemsize,
+                           out_itemsize, flops_per_s):
+    """Least time for the backward: its five products (S and dP
+    recomputed, dV, dK, dQ) and its bytes (q, k, v, out, dout and the
+    f32 lse read once; dq, dk, dv written once)."""
+    keys = t * (t + 1) // 2 if causal else t * t
+    return least_ms(10 * b * h * d * keys,
+                    2 * b * t * (h + 2 * hkv) * d * itemsize
+                    + 2 * b * t * h * d * out_itemsize + b * h * t * 4,
+                    flops_per_s)
 
 
 # name, B, T, H, Hkv, D, dtype, causal, out_dtype
@@ -547,10 +590,66 @@ def time_case(b, t, h, hkv, d, q, k, v, kw, plain_iters):
     return kern_ms, plain_ms, lib_ms, bound
 
 
+def time_bwd_case(b, t, h, hkv, d, residuals, dout, g_lse, kw,
+                  plain_iters):
+    """The backward's kernel, plain (when ``plain_iters``) and library
+    times of one case, and its bound (as :func:`time_case`). The library
+    call is ``scaled_dot_product_attention``'s backward, which writes
+    the input dtype and takes no lse cotangent."""
+    kern_ms = cuda_ms(lambda: tfa.flash_bwd_cuda(*residuals, dout, g_lse,
+                                                 **kw), iters=20)
+    plain_ms = (cuda_ms(lambda: tfa._bwd(kw["scale"], kw["causal"],
+                                         residuals, dout, g_lse,
+                                         kw["q_per_kv"]),
+                        iters=plain_iters, warmup=1)
+                if plain_iters else None)
+    q4, k4, v4 = (x.detach().view(b, -1, t, d).requires_grad_(True)
+                  for x in residuals[:3])
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=kw["causal"],
+                                        enable_gqa=True)
+    g4 = dout.view(b, h, t, d).to(o4.dtype)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o4, (q4, k4, v4), g4,
+                                                 retain_graph=True),
+                     iters=20)
+    itemsize = residuals[0].element_size()
+    bound = attention_bwd_bound_ms(b, t, h, hkv, d, kw["causal"], itemsize,
+                                   residuals[3].element_size(),
+                                   H100_BF16_FLOPS if itemsize == 2
+                                   else H100_F32_FLOPS)
+    return kern_ms, plain_ms, lib_ms, bound
+
+
+def check_bwd_case(name, residuals, dout, g_lse, kw):
+    """The backward kernel against ``_bwd`` within
+    ``bwd_kernel_tolerance``, and bitwise against a second launch.
+    Returns the largest |dq|, |dk|, |dv| error."""
+    got = tfa.flash_bwd_cuda(*residuals, dout, g_lse, **kw)
+    again = tfa.flash_bwd_cuda(*residuals, dout, g_lse, **kw)
+    want = tfa._bwd(kw["scale"], kw["causal"], residuals, dout, g_lse,
+                    kw["q_per_kv"])
+    atols, rtol = tfa.bwd_kernel_tolerance(residuals, dout, g_lse, **kw)
+    torch.cuda.synchronize()
+    errs, ok = [], all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, w, atol in zip(got, want, atols):
+        diff = (a.float() - w.float()).abs()
+        errs.append(diff.max().item())
+        ok = (ok and a.dtype == w.dtype and math.isfinite(errs[-1])
+              and (diff - (atol + rtol * w.float().abs())).max().item() <= 0)
+    log(f"  bwd kernel-vs-plain {name} (g_lse {g_lse is not None}): "
+        f"max|ddq|={errs[0]:.3e} max|ddk|={errs[1]:.3e} "
+        f"max|ddv|={errs[2]:.3e} (bwd_kernel_tolerance), bitwise equal "
+        f"on a second launch {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_bwd kernel disagrees with _bwd, or "
+                             f"with itself, in case {name}")
+    return max(errs)
+
+
 def phase_build():
     """Phase 2: build every kernel source anew (so ptxas reports on
-    each) and hold the bf16 flash kernel to no spills and to the
-    register split and wgmma pipeline its source asks for."""
+    each) and hold the bf16 flash kernels, forward and backward, to no
+    spills and to the register split and wgmma pipeline their sources
+    ask for."""
     t0 = time.perf_counter()
     logs = _kernels.build_all(force=True)
     log(f"  built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -563,24 +662,31 @@ def phase_build():
                 for w in _kernels.ptxas_warnings(text)]
     for w in warnings:
         log(f"  ptxas: {w}")
-    bf16 = [r for kernel, r in _kernels.ptxas_report(
-        logs["flash_fwd"]).items() if "flash_fwd_wgmma" in kernel]
-    if (not bf16 or warnings
-            or any(r["spill_stores"] or r["spill_loads"] for r in bf16)):
-        raise AssertionError("the bf16 flash kernel spills, is missing "
-                             "from the ptxas report, or ptxas ignored its "
-                             "setmaxnreg or serialised its wgmma")
+    for name, wgmma in (("flash_fwd", ("flash_fwd_wgmma",)),
+                        ("flash_bwd", ("flash_bwd_dkdv", "flash_bwd_dq"))):
+        report = _kernels.ptxas_report(logs[name])
+        bf16 = [r for kernel, r in report.items()
+                if any(w in kernel for w in wgmma)]
+        missing = [w for w in wgmma if not any(w in k for k in report)]
+        if (missing or warnings
+                or any(r["spill_stores"] or r["spill_loads"] for r in bf16)):
+            raise AssertionError(f"a bf16 {name} kernel spills, is missing "
+                                 f"from the ptxas report ({missing}), or "
+                                 f"ptxas ignored its setmaxnreg or "
+                                 f"serialised its wgmma")
 
 
 def phase_kernels(seed, cfg):
-    """Phase 3: kernel vs plain on the card (:func:`kernel_cases`), then
+    """Phase 3: the forward and backward kernels vs their plain versions
+    on the card (:func:`kernel_cases`; the backward with an lse
+    cotangent where the case's out is f32, as the ring's chunks), then
     timing at the slice shape, at T=8192, at the ring chunks and at
-    phase 12's per-rank shapes. Returns the kernel's JSON entry
+    phase 12's per-rank shapes. Returns the kernels' JSON entries
     (launches filled later)."""
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(seed)
-    slice_err = None
-    timed = {}
+    slice_err = slice_bwd_err = None
+    timed, bwd_timed = {}, {}
     plan_names = {c[0] for c in kernel_cases(cfg)} - {
         c[0] for c in KERNEL_CASES}
     for name, b, t, h, hkv, d, dt, causal, odt in kernel_cases(cfg):
@@ -613,13 +719,22 @@ def phase_kernels(seed, cfg):
         if not ok:
             raise AssertionError(f"flash_fwd kernel disagrees with its "
                                  f"plain version in case {name}")
+        residuals = (q, k, v, out, lse)
+        dout = torch.randn(out.shape, generator=gen, device=dev).to(out.dtype)
+        g_lse = (torch.randn(lse.shape, generator=gen, device=dev)
+                 if odt == "float32" else None)
+        bkw = dict(scale=kw["scale"], causal=causal, q_per_kv=h // hkv)
+        bwd_err = check_bwd_case(name, residuals, dout, g_lse, bkw)
         if name == "slice":
-            slice_err = err
+            slice_err, slice_bwd_err = err, bwd_err
         if name in TIMED_CASES or name in plan_names:
+            plain_iters = 3 if name in PLAIN_TIMED or name in plan_names else 0
             timed[name] = (b, t, h, hkv, d, causal, odt or dt) + time_case(
-                b, t, h, hkv, d, q, k, v, kw,
-                3 if name in PLAIN_TIMED or name in plan_names else 0)
-        del q, k, v, out, lse, ref_out, ref_lse, diff
+                b, t, h, hkv, d, q, k, v, kw, plain_iters)
+            bwd_timed[name] = (b, t, h, hkv, d, causal, odt or dt) + \
+                time_bwd_case(b, t, h, hkv, d, residuals, dout, g_lse, bkw,
+                              plain_iters)
+        del q, k, v, out, lse, ref_out, ref_lse, diff, residuals, dout, g_lse
 
     for name, (b, t, h, hkv, d, causal, odt, kern_ms, plain_ms, lib_ms,
                (bound_ms, bound_by, flops, nbytes)) in timed.items():
@@ -631,13 +746,32 @@ def phase_kernels(seed, cfg):
             f"{kern_ms / lib_ms:.3f}); bound {bound_ms:.4f} ms by {bound_by} "
             f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
             f"{100 * bound_ms / kern_ms:.1f}% of bound")
-    kern_ms, plain_ms, lib_ms, (bound_ms, bound_by, _, _) = timed["slice"][7:]
-    return {"name": "flash_fwd", "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "horovod_tpu/ops/flash_attention.py:34",
-            "launches": None, "max_abs_err": slice_err, "ms": kern_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms}
+    for name, (b, t, h, hkv, d, causal, odt, kern_ms, plain_ms, lib_ms,
+               (bound_ms, bound_by, flops, nbytes)) in bwd_timed.items():
+        plain = "" if plain_ms is None else f"plain {plain_ms:.4f} ms, "
+        log(f"  flash_bwd at {name} (B={b} T={t} H={h} Hkv={hkv} D={d} "
+            f"causal={causal} out={odt}): kernel {kern_ms:.4f} ms "
+            f"({flops / kern_ms / 1e9:.1f} TFLOP/s), {plain}"
+            f"sdpa backward {lib_ms:.4f} ms (kernel / sdpa time "
+            f"{kern_ms / lib_ms:.3f}); bound {bound_ms:.4f} ms by {bound_by} "
+            f"({flops:.4e} FLOP, {nbytes:.4e} bytes); kernel at "
+            f"{100 * bound_ms / kern_ms:.1f}% of bound")
+    entries = []
+    for name, source, replaces, times, max_err in (
+            ("flash_fwd", "flash_fwd.cu",
+             "horovod_tpu/ops/flash_attention.py:34", timed, slice_err),
+            ("flash_bwd", "flash_bwd.cu",
+             "none: horovod_tpu/ops/flash_attention.py::_bwd is XLA math",
+             bwd_timed, slice_bwd_err)):
+        kern_ms, plain_ms, lib_ms, (bound_ms, bound_by, _, _) = \
+            times["slice"][7:]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": None, "max_abs_err": max_err,
+            "ms": kern_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms})
+    return entries
 
 
 def phase_model_check(seed, device):
@@ -697,7 +831,7 @@ def phase_slice(cfg, seed, batch, seq, warmup, steps, device):
         f"{time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     losses, times = [], []
     for _ in range(warmup + steps):
         torch.cuda.synchronize()
@@ -706,7 +840,7 @@ def phase_slice(cfg, seed, batch, seq, warmup, steps, device):
         losses.append(loss.item())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     torch.cuda.synchronize()   # surfaces any fault from the steps
     peak = torch.cuda.max_memory_allocated()
 
@@ -800,7 +934,7 @@ def phase_dp(cfg, seed, batch, seq, warmup, steps, device, mesh,
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     collectives.grouped_allreduce.calls = 0
     collectives.grouped_allreduce.bytes = 0
     losses, times = [], []
@@ -813,7 +947,7 @@ def phase_dp(cfg, seed, batch, seq, warmup, steps, device, mesh,
         if cuda:
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     calls = collectives.grouped_allreduce.calls
     reduced = collectives.grouped_allreduce.bytes
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -957,7 +1091,7 @@ def phase_eager(cfg, seed, batch, seq, warmup, steps, slice_losses):
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     ex0, host0 = hvd.executor_stats(), rt.host_bytes
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     losses, times, exposed = [], [], []
     for _ in range(warmup + steps):
         if cuda:
@@ -976,7 +1110,7 @@ def phase_eager(cfg, seed, batch, seq, warmup, steps, slice_losses):
             torch.cuda.synchronize(device)
             exposed.append(bwd_end.elapsed_time(sync_end))
         times.append(time.perf_counter() - t0)
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     ex1 = hvd.executor_stats()
     d = {k: ex1[k] - ex0[k] for k in ex1}
     responses, issued, ran = d["responses"], d["collectives"], d["bytes"]
@@ -1343,7 +1477,7 @@ def train_worker(args):
                         time.sleep(0.01)
                     raise RuntimeError("the world did not grow back")
 
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     if args.worker == "static":
         for i in range(args.steps):
             loss, ms = one_step(i)
@@ -1351,7 +1485,7 @@ def train_worker(args):
     else:
         train(state)
     note("end", digest=param_digest(params), aborts=rt.aborts,
-         flash_launches=tfa.flash_fwd_cuda.launches,
+         flash_launches=flash_launches(),
          peak_mem_bytes=(torch.cuda.max_memory_allocated(device) if cuda
                          else 0))
     log_f.close()
@@ -1938,7 +2072,7 @@ def phase_compressed(cfg, seed, batch, seq, warmup, steps, device, mesh,
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     tq.reset_counters()
     losses, times = [], []
     for _ in range(warmup + steps):
@@ -1950,7 +2084,7 @@ def phase_compressed(cfg, seed, batch, seq, warmup, steps, device, mesh,
         if cuda:
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     calls, wire = tq.counters["calls"], tq.counters["wire_bytes"]
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     total = warmup + steps
@@ -2179,8 +2313,10 @@ def phase_ring_merge(seed, b=1, t=8192, h=32, d=128, sp=4):
         lses.append(lse)
     out, lse = torch.cat(outs, 1), torch.cat(lses, 1)
     launches = tfa.flash_fwd_cuda.launches
+    tfa.flash_bwd_cuda.launches = 0
     got = torch.autograd.grad((out * g_out).sum() + (lse * g_lse).sum(),
                               (q, k, v))
+    bwd_launches = tfa.flash_bwd_cuda.launches
     w_out, w_lse = tfa.flash_attention_with_lse(q, k, v, causal=True,
                                                 scale=scale,
                                                 out_dtype=torch.float32)
@@ -2196,13 +2332,14 @@ def phase_ring_merge(seed, b=1, t=8192, h=32, d=128, sp=4):
     want_launches = sp * (sp + 1) // 2
     ok = (out_err <= atol and lse_err <= 3e-4
           and all(e <= 2 ** -5 for e in grad_err)
-          and launches == want_launches)
+          and launches == want_launches and bwd_launches == want_launches)
     log(f"  ring merge on one card (B={b} T={t} H={h} D={d} bf16, {sp} "
         f"chunks of {c}; no NCCL rotation here): max|dout| {out_err:.3e} "
         f"(bound {atol:.3e}), max|dlse| {lse_err:.3e} (bound 3e-4), "
         f"max|dgrad| / max|grad| dq {grad_err[0]:.3e} dk {grad_err[1]:.3e} "
         f"dv {grad_err[2]:.3e} (bound {2 ** -5:.3e}); chunk launches "
-        f"{launches} (want {want_launches}) {'ok' if ok else 'FAIL'}")
+        f"{launches}, backward {bwd_launches} (want {want_launches} each) "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("ring_flash's attend-and-merge over chunks "
                              "disagrees with the whole-sequence kernel")
@@ -2283,7 +2420,7 @@ def phase_tp(cfg, seed, name, axes, impl, rows, seq, warmup, steps, device,
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     ttp.reset_counters(timing=cuda)
     losses, times, coll = [], [], []
     for _ in range(warmup + steps):
@@ -2296,7 +2433,7 @@ def phase_tp(cfg, seed, name, axes, impl, rows, seq, warmup, steps, device,
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
         coll.append(ttp.collective_ms(clear=True))
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     counters = {k: dict(v) for k, v in ttp.counters.items()}
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     total = warmup + steps
@@ -2604,7 +2741,7 @@ def phase_moe(cfg, seed, batch, seq, warmup, steps, device):
         before = routing(state["params"], tokens, c) if read else []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tfa.flash_fwd_cuda.launches = 0
+        zero_flash_launches()
         losses, times = [], []
         for _ in range(warmup + steps):
             torch.cuda.synchronize()
@@ -2613,7 +2750,7 @@ def phase_moe(cfg, seed, batch, seq, warmup, steps, device):
             losses.append(loss.item())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        launches = tfa.flash_fwd_cuda.launches
+        launches = flash_launches()
         peak = torch.cuda.max_memory_allocated()
         after, cross = [], None
         if read:
@@ -2876,7 +3013,7 @@ def phase_moe_pp(cfg, seed, name, axes, impl, rows, seq, sched, n_micro,
         torch.cuda.empty_cache()
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     ttp.reset_counters(timing=cuda)
     losses, times, coll = [], [], []
     for _ in range(warmup + steps):
@@ -2889,7 +3026,7 @@ def phase_moe_pp(cfg, seed, name, axes, impl, rows, seq, sched, n_micro,
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
         coll.append(ttp.collective_ms(clear=True))
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     counters = {k: dict(v) for k, v in ttp.counters.items()}
     ttp.reset_counters()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -3221,7 +3358,7 @@ def phase_adasum_step(cfg, seed, batch, seq, warmup, steps, ref_losses,
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     losses, times = [], []
     for _ in range(warmup + steps):
         if cuda:
@@ -3235,7 +3372,7 @@ def phase_adasum_step(cfg, seed, batch, seq, warmup, steps, ref_losses,
         if cuda:
             torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
-    launches = tfa.flash_fwd_cuda.launches
+    launches = flash_launches()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     want_launches = cfg.n_layers * (warmup + steps) if cuda else 0
     every = allgather_object(losses)
@@ -5016,7 +5153,7 @@ def phase_callbacks(cfg, seed, batch, seq, epochs, steps, warmup_epochs,
     average = cbs.MetricAverageCallback()
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    tfa.flash_fwd_cuda.launches = 0
+    zero_flash_launches()
     losses, times, lrs = [], [], []
     try:
         for epoch in range(epochs):
@@ -5050,7 +5187,7 @@ def phase_callbacks(cfg, seed, batch, seq, epochs, steps, warmup_epochs,
                     f"warmup_schedule at step {epoch + 1} = "
                     f"{schedule(epoch + 1)}")
             best.on_epoch_end(epoch, metrics, state=state["params"])
-        launches = tfa.flash_fwd_cuda.launches
+        launches = flash_launches()
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         final = allgather_object(param_digest(state["params"]))
         ckpt = None
@@ -5401,7 +5538,8 @@ def main(argv=None) -> int:
     stamp()
 
     log("phase 3: kernels vs plain versions")
-    entry = phase_kernels(args.seed, cfg)
+    entries = phase_kernels(args.seed, cfg)
+    entry = entries[0]
     torch.cuda.empty_cache()
     stamp()
 
@@ -5413,6 +5551,7 @@ def main(argv=None) -> int:
     entry["launches"], slice_losses, slice_ms = phase_slice(
         cfg, args.seed, batch=4, seq=2048, warmup=3, steps=5,
         device=torch.device("cuda"))
+    entries[1]["launches"] = entry["launches"]   # one backward a forward
     torch.cuda.empty_cache()
     stamp()
 
@@ -5481,7 +5620,7 @@ def main(argv=None) -> int:
     stamp()
 
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

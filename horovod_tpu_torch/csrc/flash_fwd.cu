@@ -60,47 +60,22 @@
 // Host side: the tensor maps are encoded for each call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so the
 // library needs no -lcuda; the maps travel as __grid_constant__ kernel
-// parameters, and the 160 KB of dynamic shared memory (D=128) is allowed
-// with cudaFuncSetAttribute. C interface: hvd_flash_fwd(...) returns a
-// CUDA error code: cudaErrorInvalidValue for arguments it does not take,
-// the error of a failed encode, attribute or device query, or
-// cudaGetLastError() after the launch.
+// parameters. The 160 KB of dynamic shared memory (D=128) is allowed with
+// cudaFuncSetAttribute and the SM count read once per device
+// (flash_common.cuh, which flash_bwd.cu shares). C interface:
+// hvd_flash_fwd(...) returns a CUDA error code: cudaErrorInvalidValue for
+// arguments it does not take, the error of a failed encode, attribute or
+// device query, or cudaGetLastError() after the launch.
 
-#include <cuda.h>  // CUtensorMap and the driver enums (header only)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr float kNegInf = -1e30f;  // the TPU kernel's finite NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_one(float* p, float a) { *p = a; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float a) {
-  *p = __float2bfloat16_rn(a);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 inputs: TMA, mbarriers and wgmma (PTX ISA 8.0, sm_90a).
-// ---------------------------------------------------------------------------
 
 constexpr int kBlockM = 128;  // query rows per block, 64 per consumer
 constexpr int kBlockN = 128;  // keys per K/V tile
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kConsumers = 2;  // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kBoxCols = 64;  // bf16 columns in one 128-byte swizzle row
 constexpr int kBoxBytes = 128 * kBoxCols * 2;  // one 64-column box
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;  // 2 * 240 + 24 = 3 * 168
@@ -120,245 +95,8 @@ struct Shared {
   uint64_t v_empty[kStages];
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Returns once the barrier's phase of this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-d tensor map into shared memory; completes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
 // Named barriers 1 and 2 order the two consumer warpgroups' wgmma issue.
 constexpr int kTurnBarrier = 1;
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the wait that ends it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, given in bytes and encoded
-// in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-// K-major operand (Q or K rows, d contiguous): 8-row groups are 1024
-// bytes apart; a 16-wide k step is the next 32 bytes of the swizzled
-// 128-byte row, which the hardware unswizzles from the address bits.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-
-// MN-major operand (V as B of P.V: keys are k, d is n and contiguous):
-// 8-key groups are 1024 bytes apart (stride offset), and the next 64
-// columns of d are the next box (leading offset).
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, kBoxBytes, 1024);
-}
-
-// 2^x on the SFU, flushing results below 2^-126 to zero.
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma.mma_async, f32 += bf16 x bf16. _ss: A and B from shared memory
-// (both K-major); _rs: A from registers, B MN-major (transposed).
-// Accumulator fragment of m64nN: warp w of the warpgroup holds rows
-// 16w..16w+15; with g = lane / 4 and c = lane % 4, d[4j..4j+3] are
-// (g, 8j+2c), (g, 8j+2c+1), (g+8, 8j+2c), (g+8, 8j+2c+1).
-__device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t a,
-                                                 uint64_t b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 128)
-    wgmma_m64n128_rs(o, a, b);
-  else
-    wgmma_m64n64_rs(o, a, b);
-}
 
 // One tile of the online softmax on a warpgroup's S fragment (64 rows x
 // 128 keys; this thread holds rows r0 and r0 + 8). Masks keys above
@@ -409,18 +147,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], bool masked,
   l[1] = alpha[1] * l[1] + sum[1];
 }
 
-// P rounded to bf16 pairs as the A fragments of the 8 P.V steps: the S
-// fragments of key columns 16kk..16kk+15 are exactly step kk's A.
-__device__ __forceinline__ void pack_p(const float (&s)[64],
-                                       uint32_t (&pa)[kBlockN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pa[kk][i] = pack_rn(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-  }
-}
-
 // The work items of one launch: (bh, 128-row query tile), longest first.
 // Item w is query tile n_q - 1 - w / bh_count of head w % bh_count, so
 // the causal items with the most key tiles start first and neighbouring
@@ -430,11 +156,6 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
 struct WorkItem {
   int bh, q0, n_kt;
 };
-
-__device__ __forceinline__ int item_of_round(int r) {
-  const int b = r & 1 ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  return r * gridDim.x + b;
-}
 
 __device__ __forceinline__ WorkItem work_item(int w, int bh_count, int t,
                                               int causal) {
@@ -476,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&sm.k_empty[s], 128 * kConsumers);
       mbar_init(&sm.v_empty[s], 128 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 
@@ -560,7 +281,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk)
-        wgmma_pv<D>(o, pa[kk], desc_mn_major(v_addr + kk * 16 * 128));
+        wgmma_rs<D>(o, pa[kk],
+                    desc_mn_major(v_addr + kk * 16 * 128, kBoxBytes));
       wgmma_commit();
     };
 
@@ -592,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&sm.k_empty[it % kStages]);
       if (n_kt == 1) mbar_arrive(&sm.q_empty);
       softmax_tile(s, n_kt == 1, 0, lim0, lim1, c2, scale_log2, m, l, alpha);
-      pack_p(s, pa);
+      pack_frags<kBlockN / 16>(s, pa);
 
       // Tile kt: S_kt = Q K_kt^T and O += P_{kt-1} V_{kt-1} run together;
       // the softmax of S_kt runs while P.V is still on the tensor cores,
@@ -619,7 +341,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           o[4 * i + 2] *= alpha[1];
           o[4 * i + 3] *= alpha[1];
         }
-        pack_p(s, pa);
+        pack_frags<kBlockN / 16>(s, pa);
       }
 
       // The last P.V. After the block's last item, warpgroup 1 hands over
@@ -665,53 +387,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, resolved once through the runtime.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 [n, t, d] tensor as a 3-d map {d, t, n} with 64 x 128 x 1 boxes
-// and the 128-byte swizzle; reads outside the tensor fill zeros.
-cudaError_t encode_map(CUtensorMap* map, const void* base, int n, int t,
-                       int d) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(t) * d * 2};
-  const cuuint32_t box[3] = {kBoxCols, 128, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int D, typename TOut>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int bh, int t, int q_per_kv,
@@ -719,20 +394,19 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   if (!(scale > 0.f)) return cudaErrorInvalidValue;  // max of raw scores
   CUtensorMap tm_q, tm_k, tm_v;
   cudaError_t err;
-  if ((err = encode_map(&tm_q, q, bh, t, D)) != cudaSuccess ||
-      (err = encode_map(&tm_k, k, bh / q_per_kv, t, D)) != cudaSuccess ||
-      (err = encode_map(&tm_v, v, bh / q_per_kv, t, D)) != cudaSuccess)
+  if ((err = encode_map(&tm_q, q, bh, t, D, kBlockM)) != cudaSuccess ||
+      (err = encode_map(&tm_k, k, bh / q_per_kv, t, D, kBlockN)) !=
+          cudaSuccess ||
+      (err = encode_map(&tm_v, v, bh / q_per_kv, t, D, kBlockN)) !=
+          cudaSuccess)
     return err;
   const int smem = static_cast<int>(sizeof(Shared<D>)) + 1024;  // + align
-  err = cudaFuncSetAttribute(flash_fwd_wgmma<D, TOut>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
   // A persistent grid: one block per SM walks the work items.
+  static std::atomic<int> allowed[kMaxDevices];
   int device, sms;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
+  if ((err = current_device_sms(&device, &sms)) != cudaSuccess ||
+      (err = allow_smem(flash_fwd_wgmma<D, TOut>, allowed, device, smem)) !=
+          cudaSuccess)
     return err;
   const long long n_work =
       static_cast<long long>((t + kBlockM - 1) / kBlockM) * bh;

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface and loaded with
 :mod:`ctypes`. Nothing is built when this module is imported: the first
-call that needs a kernel builds it. The output lands under
+call that needs a kernel builds every source not yet built, one ``nvcc``
+each, in parallel (a training step needs the flash forward's and
+backward's libraries together). The output lands under
 ``build/horovod_tpu_torch/`` beside the package (ignored by git), named
 by a hash of the sources and flags, so an edited source never loads a
 stale library. Every build runs under one file lock beside that
@@ -159,7 +161,7 @@ def ptxas_warnings(log: str) -> List[str]:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _build_lock():
-        _finish(name, _start(name))
+    """The loaded library of ``csrc/<name>.cu``, built first if needed,
+    with every other source not yet built (:func:`build_all`)."""
+    build_all()
     return ctypes.CDLL(str(library_path(name)))

@@ -174,3 +174,162 @@ def test_chunked_backward_matches_dense_with_lse_cotangent(monkeypatch, t):
     for a, b in zip(dense, chunked):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,
                                    atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's wrapper and its plain version, on the CPU.
+# ---------------------------------------------------------------------------
+
+def _residuals(t=200, bh=4, q_per_kv=2, d=64, causal=True, dtype=None,
+               out_dtype=None, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def arr(*shape):
+        x = torch.tensor(rng.standard_normal(shape).astype(np.float32))
+        return x if dtype is None else x.to(dtype)
+
+    q, k, v = arr(bh, t, d), arr(bh // q_per_kv, t, d), \
+        arr(bh // q_per_kv, t, d)
+    out, lse = tfa.flash_fwd_reference(q, k, v, scale=d ** -0.5,
+                                       causal=causal, q_per_kv=q_per_kv,
+                                       out_dtype=out_dtype)
+    g = torch.tensor(rng.standard_normal(out.shape).astype(np.float32)
+                     ).to(out.dtype)
+    g_lse = torch.tensor(rng.standard_normal(lse.shape).astype(np.float32))
+    return (q, k, v, out, lse), g, g_lse
+
+
+def test_flash_bwd_cuda_rejects_cpu_and_bad_shapes_without_building(
+        monkeypatch):
+    """The wrapper checks everything before it builds or loads the
+    kernel: on a machine with no card nothing reaches nvcc."""
+    from horovod_tpu_torch.ops import _kernels
+
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(_kernels, "load", no_build)
+    (q, k, v, out, lse), g, g_lse = _residuals(dtype=torch.bfloat16)
+    kw = dict(scale=0.125, causal=True, q_per_kv=2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.flash_bwd_cuda(q, k, v, out, lse, g, g_lse, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        wide = torch.zeros((4, 8, 96), dtype=torch.bfloat16)
+        tfa.flash_bwd_cuda(wide, wide[:2], wide[:2], wide, lse[:, :8],
+                           wide, **kw)
+    with pytest.raises(ValueError, match="q_per_kv"):
+        tfa.flash_bwd_cuda(q, k, v, out, lse, g, g_lse, scale=0.125,
+                           causal=True, q_per_kv=4)
+    with pytest.raises(ValueError, match="g must be"):
+        tfa.flash_bwd_cuda(q, k, v, out, lse, g[:, :100], **kw)
+    with pytest.raises(ValueError, match="g_lse"):
+        tfa.flash_bwd_cuda(q, k, v, out, lse, g, g_lse[:, :100], **kw)
+    with pytest.raises(TypeError, match="lse"):
+        tfa.flash_bwd_cuda(q, k, v, out, lse.double(), g, **kw)
+    with pytest.raises(TypeError):
+        tfa.flash_bwd_cuda(q.half(), k.half(), v.half(), out, lse, g, **kw)
+    assert tfa.flash_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("q_per_kv", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_cpu_autograd_backward_is_bwd_bitwise(causal, q_per_kv, with_lse):
+    """On CPU tensors ``_Flash`` and ``_FlashLse`` still take ``_bwd``,
+    unchanged: their gradients equal a direct call's, bit for bit."""
+    (q, k, v, _, _), g, g_lse = _residuals(q_per_kv=q_per_kv,
+                                           causal=causal)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    if with_lse:
+        out, lse = tfa._FlashLse.apply(q, k, v, 0.125, causal, None,
+                                       q_per_kv)
+        torch.autograd.backward((out, lse), (g, g_lse))
+    else:
+        out = tfa._Flash.apply(q, k, v, 0.125, causal, q_per_kv)
+        lse = tfa.flash_fwd_reference(q.detach(), k.detach(), v.detach(),
+                                      scale=0.125, causal=causal,
+                                      q_per_kv=q_per_kv)[1]
+        out.backward(g)
+        g_lse = None
+    residuals = (q.detach(), k.detach(), v.detach(), out.detach(),
+                 lse.detach())
+    want = tfa._bwd(0.125, causal, residuals, g, g_lse, q_per_kv)
+    for x, w in zip((q, k, v), want):
+        assert torch.equal(x.grad, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_delta_folding_matches_bwd_rows_with_g_lse(causal):
+    """The kernel folds the logsumexp's cotangent into delta:
+    dS = P∘(dP − (rowsum(dO∘out) − g_lse)) gives exactly the gradients
+    ``_bwd_rows`` computes with its separate g_lse terms."""
+    (q, k, v, out, lse), g, g_lse = _residuals(q_per_kv=1, causal=causal)
+    scale, t = 0.125, q.shape[1]
+    grp = [x.reshape(4, 1, t, -1) for x in (q, g, out)]
+    dq, dk, dv = tfa._bwd_rows(*grp, lse.reshape(4, 1, t),
+                               g_lse.reshape(4, 1, t), k, v, 0, scale,
+                               causal)
+    s = q @ k.transpose(1, 2) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1),
+                          tfa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = (g * out).sum(-1) - g_lse
+    ds = p * (g @ v.transpose(1, 2) - delta[..., None])
+    torch.testing.assert_close(dq.reshape(q.shape), ds @ k * scale,
+                               **F32_TOL)
+    torch.testing.assert_close(dk, ds.transpose(1, 2) @ q * scale,
+                               **F32_TOL)
+    torch.testing.assert_close(dv, p.transpose(1, 2) @ g, **F32_TOL)
+
+
+def _kernel_roundings(residuals, g, g_lse, scale, causal, q_per_kv,
+                      fold=True):
+    """The kernel's arithmetic in plain PyTorch: P and dS rounded to
+    bf16 as product operands, dO to bf16, the rest f32, dq, dk, dv
+    rounded once. ``fold=False`` plants a fault: g_lse left out."""
+    q, k, v, out, lse = residuals
+    bh, t, d = q.shape
+    qf, gf, of = q.float(), g.float(), out.float()
+    kf = k.float().repeat_interleave(q_per_kv, 0)
+    vf = v.float().repeat_interleave(q_per_kv, 0)
+    s = qf @ kf.transpose(1, 2) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1),
+                          tfa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    delta = (gf * of).sum(-1) - (g_lse if fold else 0)
+    gb = g.to(torch.bfloat16).float()
+    ds = p * (gb @ vf.transpose(1, 2) - delta[..., None])
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+
+    def group_sum(x):
+        return x.reshape(bh // q_per_kv, q_per_kv, t, d).sum(1)
+
+    return [x.to(q.dtype) for x in (
+        dsb @ kf * scale, group_sum(dsb.transpose(1, 2) @ qf * scale),
+        group_sum(pb.transpose(1, 2) @ gb))]
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_kernel_tolerance_holds_the_roundings_and_not_a_fault(
+        causal, out_dtype):
+    """``bwd_kernel_tolerance`` admits the bf16 kernel's roundings, run
+    in plain PyTorch, and refuses the same arithmetic with g_lse left
+    out of delta."""
+    residuals, g, g_lse = _residuals(dtype=torch.bfloat16, causal=causal,
+                                     out_dtype=out_dtype)
+    kw = dict(scale=0.125, causal=causal, q_per_kv=2)
+    want = tfa._bwd(0.125, causal, residuals, g, g_lse, 2)
+    atols, rtol = tfa.bwd_kernel_tolerance(residuals, g, g_lse, **kw)
+
+    def worst(got):
+        return max(((a.float() - w.float()).abs()
+                    / (atol + rtol * w.float().abs())).max().item()
+                   for a, w, atol in zip(got, want, atols))
+
+    assert worst(_kernel_roundings(residuals, g, g_lse, 0.125, causal,
+                                   2)) <= 1
+    assert worst(_kernel_roundings(residuals, g, g_lse, 0.125, causal, 2,
+                                   fold=False)) > 2

@@ -537,6 +537,34 @@ def test_build_all_force_rebuilds_what_is_built(monkeypatch, tmp_path):
         _kernels.library_path("k").name]
 
 
+def test_load_builds_every_unbuilt_source_at_once(monkeypatch, tmp_path):
+    """The first ``load`` builds the other unbuilt sources beside its
+    own (one nvcc each, started together), so the backward's library is
+    there when the first backward needs it."""
+    from horovod_tpu_torch.ops import _kernels
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f"// kernel {name}\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = -o ] && '
+                    'out="$2"; shift; done\n: > "$out"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", build)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(nvcc))
+    loaded = []
+    monkeypatch.setattr(_kernels.ctypes, "CDLL", loaded.append)
+    _kernels.load.cache_clear()
+    try:
+        _kernels.load("a")
+    finally:
+        _kernels.load.cache_clear()
+    assert loaded == [str(_kernels.library_path("a"))]
+    assert _kernels.library_path("b").exists()
+
+
 def _fake_ray():
     import types
 
